@@ -1,12 +1,15 @@
 """gpuar_tpu_torch: the PyTorch/CUDA port of gpuar_tpu.
 
 The same codec and ``.gip`` archives as ``gpuar_tpu`` (the JAX package,
-which stays the reference), on one NVIDIA GPU: files are split into
-independent 8192-byte packets and each super-batch of packets is coded on
-the card by hand-written CUDA kernels (``csrc/``), one warp per packet.
+which stays the reference), on NVIDIA GPUs: files are split into
+independent 8192-byte packets and each super-batch of packets is split
+over every local GPU and coded there by hand-written CUDA kernels
+(``csrc/``), one warp per packet.  Several processes code one file
+together with the CLI's ``--multihost`` (``parallel/distributed.py``,
+torch.distributed over gloo); the library calls below run in one process.
 The host modules of ``gpuar_tpu`` that import no JAX (config, container,
-native golden codec, pipeline drive loops) are reused as they are; this
-package imports ``torch`` and never ``jax``.
+native golden codec, pipeline drive loops, the multi-host planners) are
+reused as they are; this package imports ``torch`` and never ``jax``.
 """
 
 __version__ = "0.1.0"
@@ -17,9 +20,9 @@ from gpuar_tpu.utils.stats import CompressionInfo, ProgressMonitor  # noqa: F401
 
 
 def _pick_backend(host: bool, threads: int, debug: bool = False):
-    """The GPU by default, the native host codec with ``host=True``.
-    Without a CUDA device the GPU backend raises: there is no silent
-    fallback."""
+    """Every local GPU by default, the native host codec with
+    ``host=True``.  Without a CUDA device the GPU backend raises: there is
+    no silent fallback."""
     if host:
         from gpuar_tpu.pipeline import HostCompressor
         return HostCompressor(threads=threads)

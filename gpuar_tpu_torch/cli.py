@@ -1,11 +1,17 @@
 """Command-line driver of the PyTorch/CUDA port.
 
-``python -m gpuar_tpu_torch.cli c|d|v --in=F --out=G [--host] [--device=N]``
-takes the same verbs and flags as ``gpuar_tpu.cli`` (its parser is
-reused).  The codec runs on one GPU (``--device`` picks it, default 0);
-``--host`` runs the native host codec.  There is no silent fallback: with
-no CUDA device and no ``--host`` the command fails and says so.
-``--multihost`` is not supported by the port yet.
+``python -m gpuar_tpu_torch.cli c|d|v --in=F --out=G [--host] [--device=N]
+[--multihost]`` takes the same verbs and flags as ``gpuar_tpu.cli`` (its
+parser is reused).  The codec runs on every local GPU (``--device=N`` pins
+cuda:N); ``--host`` runs the native host codec.  There is no silent
+fallback: with no CUDA device and no ``--host`` the command fails and says
+so.
+
+``--multihost`` codes one file across a world of processes on a shared
+filesystem, over ``torch.distributed`` with the gloo backend.  The world
+comes from torchrun's environment (``RANK``, ``WORLD_SIZE``,
+``MASTER_ADDR``, ``MASTER_PORT``); a configured world that cannot form is
+an error, and without ``WORLD_SIZE`` the process runs as a world of one.
 """
 
 from __future__ import annotations
@@ -25,15 +31,20 @@ def make_compressor(args):
         from gpuar_tpu.pipeline import HostCompressor
         return HostCompressor(threads=args.threads, **kwargs)
     from gpuar_tpu_torch.parallel.runner import GPUCompressor
-    return GPUCompressor(device_index=args.device, debug=args.debug, **kwargs)
+    backend = GPUCompressor(device_index=args.device, debug=args.debug,
+                            **kwargs)
+    if not args.multihost:
+        return backend
+    from gpuar_tpu_torch.parallel.distributed import DistributedCompressor
+    return DistributedCompressor(backend=backend)
 
 
 def main(argv=None) -> int:
     parser = build_parser()
     parser.prog = "python -m gpuar_tpu_torch.cli"
     args = parser.parse_args(argv)
-    if args.multihost:
-        parser.error("--multihost is not supported by the PyTorch port")
+    if args.host and args.multihost:
+        parser.error("--host and --multihost are mutually exclusive")
     if args.resume and args.mode == "d":
         parser.error("--resume only applies to compression (mode 'c')")
     if args.debug and args.mode != "d":
@@ -63,6 +74,29 @@ def main(argv=None) -> int:
                   f"{' (deep decode verified)' if args.deep else ''}")
         return 0
 
+    if not args.multihost:
+        return _run(args)
+    import torch.distributed as dist
+
+    from gpuar_tpu_torch.parallel import distributed
+    try:
+        distributed.initialize()
+    except (RuntimeError, ValueError, OSError) as e:
+        print(f"Error: the --multihost world did not initialise ({e}).",
+              file=sys.stderr)
+        return 1
+    if distributed.process_info()[1] == 1:
+        print("Attention: --multihost with a single process; if other "
+              "uncoordinated processes write the same output it will be "
+              "corrupted.", file=sys.stderr)
+    try:
+        return _run(args)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _run(args) -> int:
     try:
         compressor = make_compressor(args)
     except (RuntimeError, ValueError) as e:

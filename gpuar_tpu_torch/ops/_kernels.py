@@ -9,7 +9,9 @@ suite, which never launches a kernel, needs no CUDA toolkit.
 Each launcher returns ``cudaGetLastError()`` after its launch; ``check``
 raises on a non-zero code.  ``LAUNCHES`` counts the kernel launches made
 through the wrappers in ``ops.encode`` / ``ops.decode`` (one per launch,
-nowhere else), so a run can show that its path went through the kernels.
+nowhere else), so a run can show that its path went through the kernels;
+``STREAM_LAUNCHES`` splits the same count by CUDA stream, which tells
+apart the shards of a MeshCodec even when they share one card.
 """
 
 from __future__ import annotations
@@ -34,11 +36,27 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # Kernel launches through the wrappers, by kernel: K1, K2 (release
 # decode) and K3 (debug decode).
 LAUNCHES = {"encode": 0, "decode": 0, "decode_debug": 0}
+# The same launches by (kernel, CUDA stream handle).
+STREAM_LAUNCHES: dict[tuple[str, int], int] = {}
 
 
 def reset_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    STREAM_LAUNCHES.clear()
+
+
+def count(kernel: str, stream: int) -> None:
+    """Record one launch of ``kernel`` on ``stream`` (a wrapper calls this
+    right after its launch succeeded)."""
+    LAUNCHES[kernel] += 1
+    key = (kernel, stream)
+    STREAM_LAUNCHES[key] = STREAM_LAUNCHES.get(key, 0) + 1
+
+
+def launches_on(stream: int | None) -> dict[str, int]:
+    """Launches per kernel on one CUDA stream since the last reset."""
+    return {k: STREAM_LAUNCHES.get((k, stream), 0) for k in LAUNCHES}
 
 
 def _sources() -> list[Path]:

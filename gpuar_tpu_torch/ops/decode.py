@@ -80,7 +80,7 @@ def _launch(blob, byte_offsets, region, raw_sizes, packet_size, debug):
             raw_sizes.data_ptr(), n, packet_size, out.data_ptr(),
             flags.data_ptr() if debug else None, int(debug), stream),
             "decode")
-    _kernels.LAUNCHES["decode_debug" if debug else "decode"] += 1
+    _kernels.count("decode_debug" if debug else "decode", stream)
     return (out, flags) if debug else out
 
 

@@ -61,6 +61,6 @@ def encode_batch(data: torch.Tensor, sizes: torch.Tensor):
         _kernels.check(lib.gpuar_encode(
             data.data_ptr(), sizes.data_ptr(), n, packet_size,
             packets.data_ptr(), stride, lengths.data_ptr(), stream), "encode")
-    _kernels.LAUNCHES["encode"] += 1
+    _kernels.count("encode", stream)
     return packets, lengths
 

@@ -1,6 +1,7 @@
 """DeviceCodec: the batch codec on one device.
 
-The single-device counterpart of ``gpuar_tpu/parallel/mesh.py::MeshCodec``.
+The per-device part of ``gpuar_tpu/parallel/mesh.py::MeshCodec``; the port's
+``parallel/mesh.py::MeshCodec`` runs one DeviceCodec per device.
 A batch goes up through a pinned host buffer on a side CUDA stream, runs
 through the K1 or K2/K3 kernel, and comes back through a pinned buffer;
 the handle carries a CUDA event, so the pipeline's drive loop can submit
@@ -14,10 +15,10 @@ strips the row padding with ``native.splice_at`` into the ``.gip`` body.
 Decode reads the reader-built blob in place (K2 takes per-packet byte
 offsets), so there is no expand gather.
 
-What MeshCodec does for the TPU's sake and this class does not: the
-entropy and density sorts, hull routing, ``_expand_rows``, lane padding to
-a tile, the compilation cache and the host re-encode fixup (K1 has no
-error flag).
+What the JAX MeshCodec does for the TPU's sake and this class does not:
+the entropy and density sorts, hull routing, ``_expand_rows``, lane
+padding to a tile, the compilation cache and the host re-encode fixup (K1
+has no error flag).
 
 ``device=torch.device("cpu")`` runs the same code with the kernels' plain
 versions and no streams; only the tests choose it.
@@ -32,6 +33,7 @@ import torch
 
 from gpuar_tpu import native
 from gpuar_tpu.config import UNCOMPRESSED_PACKET_SIZE
+from gpuar_tpu_torch.ops import _kernels
 from gpuar_tpu_torch.ops import decode as dec_ops
 from gpuar_tpu_torch.ops import encode as enc_ops
 
@@ -63,10 +65,11 @@ def compact_rows(packets: torch.Tensor, lengths: torch.Tensor,
 
 
 class _Slot:
-    """Pinned host buffers of one in-flight batch and the event that marks
-    the end of its last device work."""
+    """Host buffers of one in-flight batch (pinned for a CUDA device) and
+    the event that marks the end of its last device work."""
 
-    def __init__(self):
+    def __init__(self, pinned: bool = True):
+        self.pinned = pinned
         self.bufs: dict[str, torch.Tensor] = {}
         self.event: torch.cuda.Event | None = None
 
@@ -74,7 +77,7 @@ class _Slot:
         b = self.bufs.get(name)
         if b is None or b.numel() < nbytes:
             b = torch.empty(max(nbytes, 1), dtype=torch.uint8,
-                            pin_memory=True)
+                            pin_memory=self.pinned)
             self.bufs[name] = b
         return b[:nbytes]
 
@@ -129,9 +132,15 @@ class DeviceCodec:
         return pinned.to(self.device, non_blocking=True).view(dtype) \
             .reshape(arr.shape)
 
-    def _download(self, slot: _Slot, name: str, t: torch.Tensor):
+    def _download(self, slot: _Slot, name: str, t: torch.Tensor,
+                  into: torch.Tensor | None = None):
         """Device tensor -> pinned host tensor (valid after the slot's
-        event); CPU tensors pass through."""
+        event); CPU tensors pass through.  ``into``: a host tensor of t's
+        shape to copy into instead of the slot's buffer (MeshCodec's batch
+        buffer)."""
+        if into is not None:
+            into.copy_(t, non_blocking=self._cuda)
+            return into
         if not self._cuda:
             return t
         flat = t.contiguous().view(-1).view(torch.uint8)
@@ -169,6 +178,14 @@ class DeviceCodec:
 
     def encode_body_wait(self, handle):
         """-> (.gip body uint8 [bytes], lengths int32 [n])."""
+        blob, offsets, lengths = self.fetch_blob(handle)
+        return native.splice_at(blob, offsets, lengths), lengths
+
+    def fetch_blob(self, handle, into: torch.Tensor | None = None):
+        """Wait for an encode_body_async batch and download the used part
+        of its compacted blob -> (blob uint8 [bytes], packet byte offsets
+        int64 [n] in it, lengths int32 [n]).  ``into``: a flat uint8 host
+        tensor to download into (default the slot's pinned buffer)."""
         slot, event, blob, h_meta, n = handle
         self._wait(event)
         meta = h_meta.numpy()
@@ -180,10 +197,12 @@ class DeviceCodec:
         # wait for (the event above covered this batch's work).
         with (torch.cuda.stream(self._fetch_stream) if self._cuda
               else contextlib.nullcontext()):
-            h_blob = self._download(slot, "blob", blob.view(-1)[:nbytes])
+            h_blob = self._download(
+                slot, "blob", blob.view(-1)[:nbytes],
+                into=None if into is None else into[:nbytes])
         if self._cuda:
             self._fetch_stream.synchronize()
-        return native.splice_at(h_blob.numpy(), offsets, lengths), lengths
+        return h_blob.numpy(), offsets, lengths
 
     def encode(self, data: np.ndarray, sizes: np.ndarray):
         """Stride path: padded raw packets [n, packet_size] uint8 ->
@@ -199,54 +218,70 @@ class DeviceCodec:
         return h_pk.numpy().copy(), h_len.numpy().copy()
 
     # --- decode ------------------------------------------------------------
-    def _decode_tail(self, slot, out, comp_len, n):
+    def _decode_tail(self, slot, out, comp_len, into):
         if self.debug:
             out, flags = out
             h_flags = self._download(slot, "flags", flags)
         else:
             h_flags = None
-        h_out = self._download(slot, "out", out)
-        return slot, self._record(slot), h_out, h_flags, comp_len, n
+        h_out = self._download(slot, "out", out, into=into)
+        return slot, self._record(slot), h_out, h_flags, comp_len
 
     def decode_blob_async(self, blob: np.ndarray, roff: np.ndarray,
                           comp_len: np.ndarray, raw_sizes: np.ndarray,
-                          hull_hint=None):
+                          hull_hint=None, out: torch.Tensor | None = None):
         """Launch K2 (K3 under debug) on a reader-built blob: packet i's
         framed bytes start at row roff[i] (``decode_blob_geometry`` rows).
-        ``hull_hint`` is the TPU path's routing hint and is ignored."""
-        n = raw_sizes.shape[0]
+        ``hull_hint`` is the TPU path's routing hint and is ignored.
+        ``out``: a uint8 [n, packet_size] host tensor the result is
+        downloaded into (default the slot's pinned buffer)."""
         slot = self._slot()
         with self._on_stream():
-            out = dec_ops.decode_blob(
+            res = dec_ops.decode_blob(
                 self._upload(slot, "blob", blob),
                 self._upload(slot, "offsets",
                              np.asarray(roff, np.int64) * self.row_bytes),
                 self._upload(slot, "raw", np.asarray(raw_sizes, np.int32)),
                 packet_size=self.packet_size, debug=self.debug)
-            return self._decode_tail(slot, out, np.asarray(comp_len), n)
+            return self._decode_tail(slot, res, np.asarray(comp_len), out)
 
-    def decode_async(self, packets: np.ndarray, raw_sizes: np.ndarray):
-        """Stride form: packets [n, S] uint8 (S >= every packet's length)."""
-        n = packets.shape[0]
+    def decode_async(self, packets: np.ndarray, raw_sizes: np.ndarray,
+                     out: torch.Tensor | None = None):
+        """Stride form: packets [n, S] uint8 (S >= every packet's length);
+        ``out`` as for decode_blob_async."""
         comp_len = (packets[:, 0].astype(np.int32)
                     | (packets[:, 1].astype(np.int32) << 8))
         slot = self._slot()
         with self._on_stream():
-            out = dec_ops.decode_batch(
+            res = dec_ops.decode_batch(
                 self._upload(slot, "packets", packets),
                 self._upload(slot, "raw", np.asarray(raw_sizes, np.int32)),
                 packet_size=self.packet_size, debug=self.debug)
-            return self._decode_tail(slot, out, comp_len, n)
+            return self._decode_tail(slot, res, comp_len, out)
 
     def decode_body_wait(self, handle) -> np.ndarray:
         """-> raw uint8 [n, packet_size].  The array is a view of the
         slot's pinned buffer: it stays valid until the slot's next batch,
         two submits later (the drive loops write it out before that)."""
-        slot, event, h_out, h_flags, comp_len, n = handle
-        self._wait(event)
+        raw, flags, comp_len = self.wait_decoded(handle)
         if self.debug:
-            dec_ops.check_debug_flags(h_flags.numpy(), comp_len, n)
-        return h_out.numpy()
+            dec_ops.check_debug_flags(flags, comp_len, raw.shape[0])
+        return raw
+
+    def wait_decoded(self, handle):
+        """Wait for a decode handle -> (raw uint8 [n, packet_size], debug
+        flags int32 [2, n] or None, comp_len [n]); the flags are not
+        checked."""
+        slot, event, h_out, h_flags, comp_len = handle
+        self._wait(event)
+        return (h_out.numpy(),
+                None if h_flags is None else h_flags.numpy(), comp_len)
+
+    def launches(self) -> dict[str, int]:
+        """Kernel launches on this codec's stream since the last
+        ``_kernels.reset_counts()`` (all 0 on the CPU)."""
+        return _kernels.launches_on(
+            self._stream.cuda_stream if self._cuda else None)
 
     def decode(self, packets: np.ndarray, raw_sizes: np.ndarray):
         """Stride path, synchronous -> raw uint8 [n, packet_size] (a copy)."""

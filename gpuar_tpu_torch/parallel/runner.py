@@ -1,11 +1,14 @@
 """GPUCompressor: the GPU-backed file pipeline.
 
 The counterpart of ``gpuar_tpu/parallel/runner.py::TPUCompressor``: it
-plugs a DeviceCodec into the shared drive loops of
+plugs a MeshCodec over the local GPUs (every one by default, or the one
+``device_index`` pins) into the shared drive loops of
 ``gpuar_tpu.pipeline.Compressor`` (read a super-batch, submit it, fetch the
-previous one, splice in order into the ``.gip`` container).  The codec's
-CUDA stream and event per batch let batch N+1 run on the card while the
-host writes batch N.
+previous one, splice in order into the ``.gip`` container).  Each device's
+CUDA streams and per-batch events let batch N+1 run on the cards while the
+host writes batch N.  In a ``--multihost`` run each process's
+GPUCompressor codes that process's range on its own local GPUs
+(``parallel/distributed.py``).
 """
 
 from __future__ import annotations
@@ -14,29 +17,36 @@ import numpy as np
 import torch
 
 from gpuar_tpu.pipeline import Compressor, DEFAULT_SUPER_BATCH_PACKETS
-from gpuar_tpu_torch.parallel.codec import BUCKET_ROWS, DeviceCodec
+from gpuar_tpu_torch.parallel.codec import BUCKET_ROWS
+from gpuar_tpu_torch.parallel.mesh import MeshCodec
 
 
 class GPUCompressor(Compressor):
     def __init__(self, device_index: int | None = None,
                  super_batch_packets: int = DEFAULT_SUPER_BATCH_PACKETS,
                  debug: bool = False, packet_size: int | None = None,
-                 device: torch.device | None = None):
-        # device: an explicit torch device; only the tests pass one (the
-        # CPU, which runs the kernels' plain versions).  By default the
-        # codec runs on cuda:{device_index or 0} and there is no fallback.
-        if device is None:
+                 devices: list[torch.device] | None = None):
+        # devices: explicit torch devices, one shard each (one card may be
+        # named twice); only the tests and chip_smoke.py pass them (the CPU
+        # runs the kernels' plain versions).  By default the codec runs on
+        # cuda:0 .. cuda:{count-1}, or on cuda:{device_index} alone, and
+        # there is no fallback.
+        if devices is None:
             if not torch.cuda.is_available():
                 raise RuntimeError("no CUDA device is available")
-            index = 0 if device_index is None else device_index
-            if index < 0 or index >= torch.cuda.device_count():
-                raise ValueError(f"no device {index}")
-            device = torch.device("cuda", index)
+            count = torch.cuda.device_count()
+            if device_index is None:
+                devices = [torch.device("cuda", i) for i in range(count)]
+            elif 0 <= device_index < count:
+                devices = [torch.device("cuda", device_index)]
+            else:
+                raise ValueError(f"no device {device_index}")
         # debug: decompress through K3 (coder invariants + bitstream
         # overrun), so corrupt well-framed packets raise.
         kw = {} if packet_size is None else {"packet_size": packet_size}
-        self.codec = DeviceCodec(device, debug=debug, **kw)
+        self.codec = MeshCodec(devices, debug=debug, **kw)
         self.packet_size = self.codec.packet_size
+        # The super-batch is the total over all devices (no lane rounding).
         super().__init__(super_batch_packets=super_batch_packets)
 
     def _packetize(self, raw: np.ndarray):

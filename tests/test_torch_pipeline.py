@@ -1,8 +1,8 @@
 """The port's main path as a whole: GPUCompressor through the shared
 pipeline drive loops, the library entry points and the CLI.
 
-On the CPU, ``GPUCompressor(device=torch.device("cpu"))`` runs the same
-codec with the kernels' plain versions; its archives must be
+On the CPU, ``GPUCompressor(devices=[torch.device("cpu")])`` runs the
+same codec with the kernels' plain versions; its archives must be
 byte-identical to the JAX package's (TPUCompressor, Pallas interpret mode)
 and to the native host codec's.  The GPU-marked test drives the default
 device path.
@@ -60,7 +60,8 @@ def test_archive_matches_tpu_compressor_p64(tmp_path, rng):
     src.write_bytes(data.tobytes())
     TPUCompressor(device_index=0, tile=8, packet_size=64,
                   super_batch_packets=16).compress(src, tmp_path / "tpu.gip")
-    port = GPUCompressor(device=CPU, packet_size=64, super_batch_packets=16)
+    port = GPUCompressor(devices=[CPU], packet_size=64,
+                         super_batch_packets=16)
     port.compress(src, tmp_path / "port.gip")
     assert (tmp_path / "port.gip").read_bytes() == \
         (tmp_path / "tpu.gip").read_bytes()
@@ -71,13 +72,13 @@ def test_archive_matches_tpu_compressor_p64(tmp_path, rng):
 def test_archive_matches_host_at_default_geometry(tmp_path,
                                                   default_geometry):
     src, ref = default_geometry
-    GPUCompressor(device=CPU).compress(src, tmp_path / "port.gip")
+    GPUCompressor(devices=[CPU]).compress(src, tmp_path / "port.gip")
     assert (tmp_path / "port.gip").read_bytes() == ref.read_bytes()
 
 
 def test_host_archive_decodes(tmp_path, default_geometry):
     src, ref = default_geometry
-    GPUCompressor(device=CPU).decompress(ref, tmp_path / "back.bin")
+    GPUCompressor(devices=[CPU]).decompress(ref, tmp_path / "back.bin")
     assert (tmp_path / "back.bin").read_bytes() == src.read_bytes()
 
 
@@ -88,12 +89,12 @@ def test_multi_super_batch_streaming(tmp_path, rng):
     src = tmp_path / "in.bin"
     src.write_bytes(data)
     small, big = tmp_path / "small.gip", tmp_path / "big.gip"
-    GPUCompressor(device=CPU, packet_size=64,
+    GPUCompressor(devices=[CPU], packet_size=64,
                   super_batch_packets=1).compress(src, small)
-    GPUCompressor(device=CPU, packet_size=64,
+    GPUCompressor(devices=[CPU], packet_size=64,
                   super_batch_packets=16).compress(src, big)
     assert small.read_bytes() == big.read_bytes()
-    GPUCompressor(device=CPU, packet_size=64,
+    GPUCompressor(devices=[CPU], packet_size=64,
                   super_batch_packets=3).decompress(small, tmp_path / "b")
     assert (tmp_path / "b").read_bytes() == data
 
@@ -108,7 +109,7 @@ def test_resume_interrupted_compression(tmp_path, default_geometry):
         else:
             _, done_comp, _ = _resume_point(ref)
             part.write_bytes(blob[: container.HEADER_LENGTH + done_comp])
-        info = GPUCompressor(device=CPU).compress(src, part, resume=True)
+        info = GPUCompressor(devices=[CPU]).compress(src, part, resume=True)
         assert part.read_bytes() == blob, cut
         assert info.compressed_file_size == len(blob)
 
@@ -118,8 +119,8 @@ def test_debug_decompress_flags_corrupt_packet(tmp_path, rng):
     data[:64] = rng.integers(0, 256, 64, np.uint8)
     src, gip = tmp_path / "in.bin", tmp_path / "in.gip"
     src.write_bytes(data.tobytes())
-    GPUCompressor(device=CPU, packet_size=64).compress(src, gip)
-    debug = GPUCompressor(device=CPU, packet_size=64, debug=True)
+    GPUCompressor(devices=[CPU], packet_size=64).compress(src, gip)
+    debug = GPUCompressor(devices=[CPU], packet_size=64, debug=True)
     debug.decompress(gip, tmp_path / "back.bin")
     assert (tmp_path / "back.bin").read_bytes() == data.tobytes()
 
@@ -162,7 +163,9 @@ def test_library_entry_points(tmp_path, rng):
 
 def test_port_imports_no_jax():
     code = ("import sys, gpuar_tpu_torch, gpuar_tpu_torch.cli, "
-            "gpuar_tpu_torch.parallel.runner, gpuar_tpu_torch.ops.decode; "
+            "gpuar_tpu_torch.parallel.runner, gpuar_tpu_torch.ops.decode, "
+            "gpuar_tpu_torch.parallel.mesh, "
+            "gpuar_tpu_torch.parallel.distributed; "
             "assert 'jax' not in sys.modules, 'jax imported'")
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                        capture_output=True, text=True, timeout=300)
@@ -194,7 +197,7 @@ def test_cli_host_round_trip(tmp_path, rng):
 def test_cli_refuses_without_cuda_or_bad_flags(tmp_path):
     src = tmp_path / "in.bin"
     src.write_bytes(b"hello")
-    for bad in (["c", "--multihost"], ["d", "--debug", "--host"],
+    for bad in (["c", "--multihost", "--host"], ["d", "--debug", "--host"],
                 ["c", "--debug"]):
         r = _cli(*bad, f"--in={src}", f"--out={tmp_path / 'x'}")
         assert r.returncode == 2, (bad, r.stderr)
