@@ -41,7 +41,13 @@ exit, no result line):
      on the local card(s); each rank prints its kernel launches, which
      must show K1 and K2 (K3 under debug) on both ranks; the archive
      equals the host archive and both decodes round-trip.  The rank
-     processes import no JAX.
+     processes import no JAX;
+  8. the probes P1-P4: ``python -m gpuar_tpu_torch.probes`` as a user runs
+     it (every variant, configuration, level and primitive timed at the
+     TPU probes' sizes, P1 and P2 at 512 and 8192 chains) with its launch
+     counts; on that run's card tensors every probe against its plain
+     version at 256 steps, and at its full size each probe's default and
+     P1's v31/v32 (whose int16 counts wrap past 32,767), at 0 tolerance.
 
     python3 chip_smoke.py --profile
 
@@ -55,11 +61,15 @@ runs only what spans cards, for a multi-card machine: phases 0 and 1,
 the phase 4 file and its host archive, then phases 6 and 7 (no kernels
 line).
 
-The second-to-last line is a JSON object of the kernels (ms and plain_ms
-are batch 0's, launches phase 4's); the last is {"ok": true, "device":
-{...}}.  Times are printed beside the card's name and power limit; the
-times of phases 6 and 7 show processes or shards sharing the cards, not
-a scaling figure.
+The second-to-last line is a JSON object of the kernels: for K1-K3 ms,
+plain_ms and bound_ms are batch 0's and launches phase 4's; for P1-P4 ms
+is the default's (P1 v0_3pass_256 and P2 1x(1,512) at 512 chains, P3
+level 5, P4 k_onehot), plain_ms and bound_ms its full size's, launches
+phase 8's.  bound_ms is the larger of the bytes over 3.35 TB/s and the
+operations over 33.5e12 32-bit operations a second (``bound``).  The
+last line is {"ok": true, "device": {...}}.  Times are printed beside
+the card's name and power limit; the times of phases 6 and 7 show
+processes or shards sharing the cards, not a scaling figure.
 """
 
 from __future__ import annotations
@@ -108,6 +118,32 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
         raise AssertionError(f"shape {tuple(a.shape)} != {tuple(b.shape)}")
     return int((a.to(torch.int64) - b.to(a.device, torch.int64))
                .abs().max()) if a.numel() else 0
+
+
+# The H100 SXM's published peaks (NVIDIA's data sheet): device
+# memory 3.35 TB/s; 67 TFLOP/s float32 outside the tensor cores, which
+# counts a fused multiply-add as two, so one 32-bit operation per lane per
+# clock is 33.5e12 operations a second.  The kernels' operations are
+# 32-bit integer ones.
+HBM_BYTES_PER_S = 3.35e12
+OPS_PER_S = 67e12 / 2
+
+
+def bound(nbytes: int, ops: int) -> tuple[float, str]:
+    """(least ms for the work, "bytes" or "operations"): the larger of the
+    bytes over the memory rate and the operations over the 32-bit rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def model_ops(data: np.ndarray, sizes: np.ndarray, top: int):
+    """(symbols coded, adds of the adaptive model's update) of packets
+    data[i, :sizes[i]]: a symbol s adds one to every cumulative count
+    above it, top - s of them."""
+    keep = np.arange(data.shape[1])[None, :] < sizes[:, None]
+    nsym = int(keep.sum())
+    return nsym, top * nsym - int(data[keep].sum(dtype=np.int64))
 
 
 def encode_err(pk, ln, plain_pk, plain_ln) -> int:
@@ -188,7 +224,7 @@ def to_batch(chunks):
 
 def blob_of(packets: np.ndarray, lengths: np.ndarray):
     """The reader-built compacted form of fixed-stride packets."""
-    from gpuar_tpu.pipeline import _PacketReader
+    from gpuar_tpu_torch.pipeline import _PacketReader
 
     body = b"".join(packets[i, : lengths[i]].tobytes()
                     for i in range(len(lengths)))
@@ -221,18 +257,20 @@ def phase1():
     from gpuar_tpu_torch.ops import _kernels
 
     t0 = time.perf_counter()
-    stale = _kernels.library_path()
-    if stale.exists():
-        stale.unlink()   # always build from the checkout's sources
-    _kernels.load()
+    for src in _kernels.sources():
+        stale = _kernels.library_path(src)
+        if stale.exists():
+            stale.unlink()   # always build from the checkout's sources
+    libs = _kernels.load()   # one nvcc per source, all at once
     seconds = time.perf_counter() - t0
     say("1 build", f"nvcc {' '.join(_kernels.NVCC_FLAGS)} -> "
-        f"{_kernels.library_path().relative_to(ROOT)}", t0)
+        f"{', '.join(_kernels.library_path(p).name for p in _kernels.sources())}"
+        f" ({len(libs)} libraries)", t0)
     return seconds
 
 
 def phase2(dev, errs):
-    from gpuar_tpu import native
+    from gpuar_tpu_torch import native
     from gpuar_tpu_torch.ops import encode, torch_codec
 
     t0 = time.perf_counter()
@@ -259,7 +297,7 @@ def phase2(dev, errs):
 
 
 def phase3(dev, errs, data, sizes, packets, lengths):
-    from gpuar_tpu import container
+    from gpuar_tpu_torch import container
     from gpuar_tpu_torch.ops import decode, torch_codec
 
     t0 = time.perf_counter()
@@ -336,7 +374,7 @@ def make_file(path: Path) -> int:
 
 def setup4() -> Path:
     """The main path's file and its host archive (WORK / "host.gip")."""
-    from gpuar_tpu.pipeline import HostCompressor
+    from gpuar_tpu_torch.pipeline import HostCompressor
 
     t0 = time.perf_counter()
     src = WORK / "in.bin"
@@ -697,7 +735,7 @@ def phase5(card, dev, src, errs):
     each kernel is held against its plain version on the same card
     tensors at 0 tolerance (against_plain).  Then kernel against plain
     version at [32, 8192]."""
-    from gpuar_tpu import native
+    from gpuar_tpu_torch import native
     from gpuar_tpu_torch.ops import decode, encode, torch_codec
 
     t0 = time.perf_counter()
@@ -726,14 +764,30 @@ def phase5(card, dev, src, errs):
         if b == 1:
             continue   # the same shape as batch 0
 
+        if b == 0:
+            # The least time for batch 0's work (bound): K1 reads the raw
+            # bytes and sizes and writes the packets and lengths; K2 reads
+            # the blob, offsets and sizes and writes the bytes (K3 also
+            # its flags).  Per symbol both update the model (256 - s adds)
+            # and do the coder's arithmetic, counted as 16 operations
+            # (two reads, two multiplies, two divisions, the narrowing,
+            # the renormalisation); the decoder's search as 8 more.
+            n = data.shape[0]
+            nsym, upd = model_ops(data, sizes, 256)
+            dec_bytes = blob.size + offs.nbytes + rs.nbytes + n * P
+            bounds = {"encode": bound(int(sizes.sum()) + 8 * n
+                                      + int(ln.sum()), upd + 16 * nsym),
+                      "decode": bound(dec_bytes, upd + 24 * nsym),
+                      "decode_debug": bound(dec_bytes + 8 * n,
+                                            upd + 24 * nsym)}
         del pk, ln, args
         e, plain = against_plain(dev, data, sizes)
         for key in e:
             errs[key] = max(errs[key], e[key])
         if b == 0:
-            batch0 = {"encode": (ms_enc, plain["encode"]),
-                      "decode": (ms_dec, plain["decode"]),
-                      "decode_debug": (ms_dbg, plain["decode_debug"])}
+            batch0 = {key: (ms, plain[key], *bounds[key]) for key, ms in
+                      (("encode", ms_enc), ("decode", ms_dec),
+                       ("decode_debug", ms_dbg))}
         print(f"[{card}] batch {b} {list(data.shape)}: plain versions "
               f"K1 {plain['encode']:.4f} ms, K2 {plain['decode']:.4f} ms, "
               f"K3 {plain['decode_debug']:.4f} ms; K1 packets and lengths, "
@@ -774,6 +828,191 @@ def phase5(card, dev, src, errs):
     return batch0
 
 
+# Phase 8, the probes: LAUNCHES key -> (name, source, the TPU call site).
+PROBE_ROUTES = {
+    "probe_model": ("P1 model-update probe",
+                    "gpuar_tpu_torch/csrc/probe_model.cu",
+                    "benchmarks/probe_model.py:187"),
+    "probe_carry": ("P2 loop-carry probe",
+                    "gpuar_tpu_torch/csrc/probe_model.cu",
+                    "benchmarks/probe_model.py:236"),
+    "profile_encode": ("P3 encoder phase ablation",
+                       "gpuar_tpu_torch/csrc/profile_encode.cu",
+                       "benchmarks/profile_encode.py:191"),
+    "probe_layouts": ("P4 primitive probes",
+                      "gpuar_tpu_torch/csrc/probe_layouts.cu",
+                      "benchmarks/probe_layouts.py:43"),
+}
+PARITY_STEPS = 256   # steps of the every-variant parity check
+
+
+def phase8(card):
+    """The probe entry point as a user runs it (``python -m
+    gpuar_tpu_torch.probes``: P1 and P2 at 512 and 8192 chains, P3 levels
+    1-5 and K1, P4 at the probes' sizes), with its launch counts.  Then, on
+    that run's card tensors, every P1 variant, P2 configuration, P3 level
+    and P4 probe against its plain version at PARITY_STEPS steps, and at
+    its full size each probe's default (the one the kernels line times)
+    and P1's v31/v32 at 512 chains; all at 0 tolerance.
+    -> {key: kernels line entry}."""
+    from gpuar_tpu_torch import probes
+    from gpuar_tpu_torch.probes import __main__ as entry
+    from gpuar_tpu_torch.probes import (
+        probe_layouts,
+        probe_model,
+        profile_encode,
+    )
+
+    t0 = time.perf_counter()
+    probes.reset_counts()
+    results = entry.main([])
+    torch.cuda.synchronize()
+    launches = dict(probes.LAUNCHES)
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a probe kernel never launched: {launches}")
+    say("8 probes", f"python -m gpuar_tpu_torch.probes: {len(results)} "
+        f"timings; launches {launches}", t0)
+
+    t0 = time.perf_counter()
+    errs = dict.fromkeys(PROBE_ROUTES, 0)
+
+    def hold(key, what, got, want):
+        got, want = (got, want) if isinstance(got, tuple) else \
+            ((got,), (want,))
+        err = max(max_abs_err(a, b) for a, b in zip(got, want))
+        errs[key] = max(errs[key], err)
+        if err:
+            raise AssertionError(f"{what}: the kernel differs from its "
+                                 f"plain version (max_abs_err {err})")
+
+    steps = PARITY_STEPS
+    adversary = torch.from_numpy(
+        adversarial_underflow_packet(steps).view("<i4").copy())
+    checked = 0
+    for r in results:
+        probe, name = r["probe"], r["name"]
+        what = f"{probe} {name} [{r['width']}], {steps} steps"
+        if probe == "P1":
+            w = r["words"]
+            hold("probe_model", what, probe_model.model(w, name, steps // 2, 2),
+                 probe_model.model_plain(w, name, steps // 2, 2))
+        elif probe == "P2":
+            w = r["words"]
+            hold("probe_carry", what, probe_model.carry(w, name, steps),
+                 probe_model.carry_plain(w.shape[1], steps, name, w.device))
+        elif probe == "P3" and name != "K1":
+            # Packet 1 is the underflow adversary (whole fill words at
+            # L5); packets 2 and 3 are short and empty.
+            w = r["words"][: steps // 4].clone()
+            w[:, 1] = adversary.to(w.device)
+            s = torch.full_like(r["sizes"], steps)
+            s[2], s[3] = steps // 3, 0
+            level = int(name[1:])
+            hold("profile_encode", what,
+                 profile_encode.profile(w, s, level, steps),
+                 profile_encode.profile_plain(w, s, level, steps))
+        elif probe == "P4":
+            seed = r["seed"]
+            if name in probe_layouts.SCALAR:
+                got = probe_layouts.scalar(seed, name, steps)
+                want = probe_layouts.scalar_plain(seed, name, steps)
+            else:
+                got = probe_layouts.table(seed, name, r["width"], steps)
+                want = probe_layouts.table_plain(name, r["width"], steps,
+                                                 seed.device)
+            hold("probe_layouts", what, got, want)
+        else:
+            continue
+        checked += 1
+    say("8 parity", f"{checked} variants, configurations, levels and probes "
+        f"equal their plain versions at {steps} steps (max_abs_err 0)", t0)
+
+    # Each probe's default at its full size: the entry point's output
+    # against the plain version on the same inputs, timed, and its bound.
+    def find(probe, name, width):
+        return next(r for r in results if r["probe"] == probe
+                    and r["name"] == name and r["width"] == width)
+
+    rows = {}
+    tile = probe_model.TILE
+    r = find("P1", probe_model.DEFAULT_VARIANT, tile)
+    plain_ms, want = ms_of(lambda: probe_model.model_plain(
+        r["words"], r["name"], probe_model.STEPS, probe_model.REPEAT))
+    hold("probe_model", f"P1 {r['name']} [{tile}] full", r["out"], want)
+    # Per step: the update's 255 - s adds, two reads, two adds to chk, the
+    # symbol's shift and mask; each input word read once.
+    syms = r["words"].view(torch.uint8)
+    nsym = syms.numel()
+    ops = probe_model.REPEAT * (255 * nsym - int(syms.sum(dtype=torch.int64))
+                                + 6 * nsym)
+    rows["probe_model"] = (r, plain_ms, bound(r["words"].nbytes + 4 * tile,
+                                              ops))
+    # A count of row 255 passes 32,767 after about 32,500 steps, so only
+    # the full run (65,536 steps a chain) takes the int16 counts of v31
+    # and v32 through the wrap (v30 never updates its counts); v32 is v0's
+    # function in int16 counts, and so differs from it once they wrap.
+    for name in ("v31_i16_3pass", "v32_i16_mixed"):
+        ri = find("P1", name, tile)
+        hold("probe_model", f"P1 {name} [{tile}] full", ri["out"],
+             probe_model.model_plain(ri["words"], name, probe_model.STEPS,
+                                     probe_model.REPEAT))
+    if torch.equal(find("P1", "v32_i16_mixed", tile)["out"], r["out"]):
+        raise AssertionError("v32_i16_mixed equals v0_3pass_256 at full "
+                             "size: its int16 counts did not wrap")
+
+    r = find("P2", probe_model.DEFAULT_CARRY, tile)
+    iters = probe_model.STEPS * probe_model.REPEAT
+    plain_ms, want = ms_of(lambda: probe_model.carry_plain(
+        tile, iters, r["name"], r["out"].device))
+    hold("probe_carry", f"P2 {r['name']} [{tile}] full", r["out"], want)
+    ncarry, _, unroll = probe_model.CARRIES[r["name"]]
+    # A shift and two adds per carry per unrolled step; the words are
+    # taken and never read, so only the output moves.
+    rows["probe_carry"] = (r, plain_ms, bound(4 * tile,
+                                              3 * tile * iters * ncarry
+                                              * unroll))
+
+    r = find("P3", f"L{profile_encode.DEFAULT_LEVEL}", profile_encode.B)
+    plain_ms, want = ms_of(lambda: profile_encode.profile_plain(
+        r["words"], r["sizes"], profile_encode.DEFAULT_LEVEL,
+        profile_encode.STEPS))
+    hold("profile_encode", f"P3 {r['name']} full", r["out"], want)
+    # Every packet is full: per symbol the update (255 - s adds) and K1's
+    # 16 operations of coder arithmetic; inputs read once, out and len
+    # written once.
+    syms = r["words"].view(torch.uint8)
+    nsym = syms.numel()
+    ops = 255 * nsym - int(syms.sum(dtype=torch.int64)) + 16 * nsym
+    nbytes = r["words"].nbytes + 2 * r["sizes"].nbytes + r["out"][0].nbytes
+    rows["profile_encode"] = (r, plain_ms, bound(nbytes, ops))
+
+    r = find("P4", probe_layouts.DEFAULT, probe_layouts.B)
+    n, steps = probe_layouts.B, probe_layouts.STEPS
+    plain_ms, want = ms_of(lambda: probe_layouts.table_plain(
+        r["name"], n, steps, r["seed"].device))
+    hold("probe_layouts", f"P4 {r['name']} full", r["out"], want)
+    # Table b counts symbol (7b + t) & 0xFF at step t: the update's 255 - s
+    # adds, one read, an add and a mask; only the sums are written.
+    s = (torch.arange(n)[:, None] * 7 + torch.arange(steps)[None, :]) & 0xFF
+    ops = int((255 - s).sum()) + 3 * n * steps
+    rows["probe_layouts"] = (r, plain_ms, bound(4 * n, ops))
+
+    for key, (r, plain_ms, (bound_ms, by)) in rows.items():
+        print(f"[{card}] {PROBE_ROUTES[key][0]} {r['name']} "
+              f"[{r['width']}] full size: kernel {r['ms']:.4f} ms, plain "
+              f"version {plain_ms:.4f} ms, bound {bound_ms:.6f} ms "
+              f"({by}); equal at 0", flush=True)
+    say("8 full size", "each probe's default, v31 and v32 equal their "
+        "plain versions", t0)
+    return {key: {"name": PROBE_ROUTES[key][0], "route": "cuda",
+                  "source": PROBE_ROUTES[key][1],
+                  "replaces": PROBE_ROUTES[key][2],
+                  "launches": launches[key], "max_abs_err": errs[key],
+                  "ms": r["ms"], "plain_ms": plain_ms, "bound_ms": bound_ms,
+                  "bound_by": by, "library_ms": None}
+            for key, (r, plain_ms, (bound_ms, by)) in rows.items()}
+
+
 def main() -> int:
     global CARD
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -808,6 +1047,8 @@ def main() -> int:
             del gpu
         phase6(CARD, src, errs)
         phase7(CARD, src)
+        if not opts.parallel:
+            probe_rows = phase8(CARD)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     print(f"[{CARD}] kernel build and load {build_s:.3f} s", flush=True)
@@ -825,8 +1066,10 @@ def main() -> int:
     kernels = [{"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches[key],
                 "max_abs_err": errs[key], "ms": times[key][0],
-                "plain_ms": times[key][1]}
+                "plain_ms": times[key][1], "bound_ms": times[key][2],
+                "bound_by": times[key][3], "library_ms": None}
                for key, (name, source, replaces) in route.items()]
+    kernels += list(probe_rows.values())
     say("done", "all phases passed", t_all)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -7,16 +7,20 @@ over every local GPU and coded there by hand-written CUDA kernels
 (``csrc/``), one warp per packet.  Several processes code one file
 together with the CLI's ``--multihost`` (``parallel/distributed.py``,
 torch.distributed over gloo); the library calls below run in one process.
-The host modules of ``gpuar_tpu`` that import no JAX (config, container,
-native golden codec, pipeline drive loops, the multi-host planners) are
-reused as they are; this package imports ``torch`` and never ``jax``.
+The host layer (config, container, the native golden codec, the
+pipeline drive loops, the multi-host planners) is the port's own copy of
+``gpuar_tpu``'s, under the same names; this package imports ``torch`` and
+nothing of ``jax`` or ``gpuar_tpu``.
 """
 
 __version__ = "0.1.0"
 
-from gpuar_tpu.config import CodecConfig, DEFAULT_CONFIG  # noqa: F401
-from gpuar_tpu.container import ContainerError, FileHeader  # noqa: F401
-from gpuar_tpu.utils.stats import CompressionInfo, ProgressMonitor  # noqa: F401
+from gpuar_tpu_torch.config import CodecConfig, DEFAULT_CONFIG  # noqa: F401
+from gpuar_tpu_torch.container import ContainerError, FileHeader  # noqa: F401
+from gpuar_tpu_torch.utils.stats import (  # noqa: F401
+    CompressionInfo,
+    ProgressMonitor,
+)
 
 
 def _pick_backend(host: bool, threads: int, debug: bool = False):
@@ -24,7 +28,7 @@ def _pick_backend(host: bool, threads: int, debug: bool = False):
     ``host=True``.  Without a CUDA device the GPU backend raises: there is
     no silent fallback."""
     if host:
-        from gpuar_tpu.pipeline import HostCompressor
+        from gpuar_tpu_torch.pipeline import HostCompressor
         return HostCompressor(threads=threads)
     from gpuar_tpu_torch.parallel.runner import GPUCompressor
     return GPUCompressor(debug=debug)
@@ -50,6 +54,6 @@ def decompress(src, dst, *, host: bool = False, threads: int = 1,
 
 def verify(path, *, deep: bool = False, threads: int = 1) -> dict:
     """Integrity-check a .gip archive (CLI ``v``); see
-    gpuar_tpu.pipeline.verify_archive."""
-    from gpuar_tpu.pipeline import verify_archive
+    pipeline.verify_archive."""
+    from gpuar_tpu_torch.pipeline import verify_archive
     return verify_archive(path, deep=deep, threads=threads)

@@ -1,8 +1,9 @@
 """Command-line driver of the PyTorch/CUDA port.
 
 ``python -m gpuar_tpu_torch.cli c|d|v --in=F --out=G [--host] [--device=N]
-[--multihost]`` takes the same verbs and flags as ``gpuar_tpu.cli`` (its
-parser is reused).  The codec runs on every local GPU (``--device=N`` pins
+[--multihost]`` takes the same verbs and flags as ``gpuar_tpu.cli`` (the
+reference CLI, jiahansu/GPUAR src/main.cpp:85-96, plus ``v``, ``--resume``,
+``--debug`` and ``--deep``).  The codec runs on every local GPU (``--device=N`` pins
 cuda:N); ``--host`` runs the native host codec.  There is no silent
 fallback: with no CUDA device and no ``--host`` the command fails and says
 so.
@@ -16,11 +17,53 @@ an error, and without ``WORLD_SIZE`` the process runs as a world of one.
 
 from __future__ import annotations
 
+import argparse
 import json
 import sys
 
-from gpuar_tpu.cli import build_parser
-from gpuar_tpu.utils.stats import ProgressMonitor, SplitTimer
+from gpuar_tpu_torch.utils.stats import ProgressMonitor, SplitTimer
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="python -m gpuar_tpu_torch.cli",
+        description="GPU block-parallel adaptive arithmetic coder (.gip)",
+    )
+    p.add_argument("mode", nargs="?", default="c", choices=["c", "d", "v"],
+                   help="c: compress (default), d: decompress, v: verify "
+                        "archive integrity (no output written)")
+    p.add_argument("--in", dest="input", required=True, help="input file")
+    p.add_argument("--out", dest="output", default="output.gip",
+                   help="output file (default output.gip)")
+    p.add_argument("--host", action="store_true",
+                   help="run the codec on the host CPU (native golden path)")
+    p.add_argument("--device", type=int, default=None,
+                   help="pin one GPU by index; default: every local GPU")
+    p.add_argument("--batch-packets", type=int, default=None,
+                   help="packets per super-batch (bounds memory)")
+    p.add_argument("--threads", type=int, default=1,
+                   help="host-codec worker threads (--host, and v --deep; "
+                        "0 = all cores).  Packets are independent, so any "
+                        "value yields an identical archive/verdict")
+    p.add_argument("--multihost", action="store_true",
+                   help="every process codes its file range and splices at "
+                        "gathered offsets (shared filesystem)")
+    p.add_argument("--resume", action="store_true",
+                   help="continue an interrupted compression: complete "
+                        "packets already in the output are kept")
+    p.add_argument("--debug", action="store_true",
+                   help="decompress with the kernel's debug checks: coder "
+                        "invariants + bitstream-overrun detection per "
+                        "packet; corrupt packets raise instead of decoding "
+                        "garbage")
+    p.add_argument("--deep", action="store_true",
+                   help="with v: also decode every packet on the host "
+                        "codec and flag bitstream overruns")
+    p.add_argument("--nointeractive", action="store_true",
+                   help="suppress progress output")
+    p.add_argument("--json", action="store_true",
+                   help="print stats as one JSON line")
+    return p
 
 
 def make_compressor(args):
@@ -28,7 +71,7 @@ def make_compressor(args):
     if args.batch_packets:
         kwargs["super_batch_packets"] = args.batch_packets
     if args.host:
-        from gpuar_tpu.pipeline import HostCompressor
+        from gpuar_tpu_torch.pipeline import HostCompressor
         return HostCompressor(threads=args.threads, **kwargs)
     from gpuar_tpu_torch.parallel.runner import GPUCompressor
     backend = GPUCompressor(device_index=args.device, debug=args.debug,
@@ -41,7 +84,6 @@ def make_compressor(args):
 
 def main(argv=None) -> int:
     parser = build_parser()
-    parser.prog = "python -m gpuar_tpu_torch.cli"
     args = parser.parse_args(argv)
     if args.host and args.multihost:
         parser.error("--host and --multihost are mutually exclusive")
@@ -55,7 +97,7 @@ def main(argv=None) -> int:
         parser.error("--deep only applies to verification (mode 'v')")
 
     if args.mode == "v":
-        from gpuar_tpu.pipeline import verify_archive
+        from gpuar_tpu_torch.pipeline import verify_archive
 
         try:
             with SplitTimer() as t:

@@ -15,6 +15,11 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr int kWarpsPerBlock = 4;
 constexpr uint32_t kU16 = 0xFFFFu;
 
+// Hides x from the compiler's folding at no cost in instructions: a
+// probe's chain of primitives is computed as written, not collapsed, and
+// equal chains are not merged.
+__device__ __forceinline__ void opaque(int& x) { asm volatile("" : "+r"(x)); }
+
 // Leading zeros of a 16-bit value (clz16(0) = 16).
 __device__ __forceinline__ uint32_t clz16(uint32_t x) { return __clz(x) - 16; }
 

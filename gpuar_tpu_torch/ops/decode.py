@@ -24,7 +24,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from gpuar_tpu.config import UNCOMPRESSED_PACKET_SIZE
+from gpuar_tpu_torch import container
+from gpuar_tpu_torch.config import UNCOMPRESSED_PACKET_SIZE
 from gpuar_tpu_torch.ops import _kernels, torch_codec
 from gpuar_tpu_torch.ops.encode import out_geometry
 
@@ -45,8 +46,6 @@ def check_debug_flags(flags: np.ndarray, comp_len: np.ndarray,
     overrun = flags[1, :n] > np.asarray(comp_len, np.int64)[:n] * 8 + 16
     bad = np.nonzero((flags[0, :n] != 0) | overrun)[0]
     if bad.size:
-        from gpuar_tpu import container
-
         raise container.ContainerError(
             "Corrupt packet data: coder invariant violation or "
             f"bitstream overrun in packets {bad[:8].tolist()}"
@@ -72,10 +71,10 @@ def _launch(blob, byte_offsets, region, raw_sizes, packet_size, debug):
     blob = blob.contiguous()
     byte_offsets = byte_offsets.contiguous()
     raw_sizes = raw_sizes.contiguous()
-    lib = _kernels.load()
+    launch = _kernels.function("gpuar_decode")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        _kernels.check(lib.gpuar_decode(
+        _kernels.check(launch(
             blob.data_ptr(), blob.numel(), byte_offsets.data_ptr(), region,
             raw_sizes.data_ptr(), n, packet_size, out.data_ptr(),
             flags.data_ptr() if debug else None, int(debug), stream),

@@ -55,10 +55,10 @@ def encode_batch(data: torch.Tensor, sizes: torch.Tensor):
     sizes = sizes.contiguous()
     packets = torch.empty((n, stride), dtype=torch.uint8, device=data.device)
     lengths = torch.empty(n, dtype=torch.int32, device=data.device)
-    lib = _kernels.load()
+    launch = _kernels.function("gpuar_encode")
     with torch.cuda.device(data.device):
         stream = torch.cuda.current_stream().cuda_stream
-        _kernels.check(lib.gpuar_encode(
+        _kernels.check(launch(
             data.data_ptr(), sizes.data_ptr(), n, packet_size,
             packets.data_ptr(), stride, lengths.data_ptr(), stream), "encode")
     _kernels.count("encode", stream)

@@ -8,7 +8,7 @@ derivation).  These are the correctness anchors of the CUDA kernels in
 tensors that lie on the CPU, and ``chip_smoke.py`` holds each kernel
 against them on the card.  They run on any device but are slow (one
 batch of small tensor ops per symbol step); the encoder's output stage
-is the shared host packer ``gpuar_tpu.ops.bitpack.pack_batch``.
+is the host packer ``ops.bitpack.pack_batch``.
 
 All state is int64, so no intermediate can overflow.
 """
@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from gpuar_tpu.config import MODEL_SIZE, PACKET_HEADER_LENGTH
+from gpuar_tpu_torch.config import MODEL_SIZE, PACKET_HEADER_LENGTH
 
 U16 = 0xFFFF
 
@@ -169,7 +169,7 @@ def encode_packets(data: torch.Tensor, sizes: torch.Tensor, stride: int):
     """Plain K1: data [B, P] uint8, sizes [B] -> (packets [B, stride]
     uint8, lengths [B] int32), on data's device; the bits are packed on
     the host by ``bitpack.pack_batch``."""
-    from gpuar_tpu.ops import bitpack
+    from gpuar_tpu_torch.ops import bitpack
 
     desc, pat, tail_bit, tail_run = encode_scan(data.T, sizes)
 

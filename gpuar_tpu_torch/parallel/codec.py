@@ -31,8 +31,8 @@ import contextlib
 import numpy as np
 import torch
 
-from gpuar_tpu import native
-from gpuar_tpu.config import UNCOMPRESSED_PACKET_SIZE
+from gpuar_tpu_torch import native
+from gpuar_tpu_torch.config import UNCOMPRESSED_PACKET_SIZE
 from gpuar_tpu_torch.ops import _kernels
 from gpuar_tpu_torch.ops import decode as dec_ops
 from gpuar_tpu_torch.ops import encode as enc_ops
@@ -229,10 +229,9 @@ class DeviceCodec:
 
     def decode_blob_async(self, blob: np.ndarray, roff: np.ndarray,
                           comp_len: np.ndarray, raw_sizes: np.ndarray,
-                          hull_hint=None, out: torch.Tensor | None = None):
+                          out: torch.Tensor | None = None):
         """Launch K2 (K3 under debug) on a reader-built blob: packet i's
         framed bytes start at row roff[i] (``decode_blob_geometry`` rows).
-        ``hull_hint`` is the TPU path's routing hint and is ignored.
         ``out``: a uint8 [n, packet_size] host tensor the result is
         downloaded into (default the slot's pinned buffer)."""
         slot = self._slot()

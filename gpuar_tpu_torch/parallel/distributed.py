@@ -13,9 +13,9 @@ protocol and the same archive:
   offset.
 
 Every process needs the same shared filesystem.  The pure planning
-helpers and segment loaders are the JAX module's own (that module imports
-JAX only inside its collective seams, so this one stays free of JAX).
-Its five seams are replaced here with ``torch.distributed`` on **gloo**:
+helpers, the prefetch thread and the segment loader are copies of the JAX
+module's.  Its five collective seams are replaced here with
+``torch.distributed`` on **gloo**:
 ``initialize``, ``process_info``, ``_allgather_sizes`` (int64 travels as
 it is, so the u32 halves are gone), ``_barrier`` and the broadcasts of
 ``_segment_stream``.  Gloo and not NCCL: the payload is host metadata, and
@@ -38,18 +38,93 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from gpuar_tpu import container
-from gpuar_tpu.config import UNCOMPRESSED_PACKET_SIZE
-from gpuar_tpu.parallel.distributed import (
-    _BodyView,
-    _IterPrefetcher,
-    _load_segment_blob,
-    exclusive_scan,
-    host_ranges,
-    walk_packet_index_chunks,
+from gpuar_tpu_torch import container, native
+from gpuar_tpu_torch.config import (
+    PACKET_HEADER_LENGTH,
+    UNCOMPRESSED_PACKET_SIZE,
 )
-from gpuar_tpu.pipeline import _splice
-from gpuar_tpu.utils.stats import CompressionInfo, ProgressMonitor, SplitTimer
+from gpuar_tpu_torch.pipeline import _splice
+from gpuar_tpu_torch.utils.stats import (
+    CompressionInfo,
+    ProgressMonitor,
+    SplitTimer,
+)
+
+
+# --------------------------------------------------------------------------
+# Pure planners (copies of the JAX module's)
+# --------------------------------------------------------------------------
+
+def host_ranges(file_size: int, n_hosts: int,
+                packet_size: int = UNCOMPRESSED_PACKET_SIZE
+                ) -> list[tuple[int, int]]:
+    """Split [0, file_size) into n_hosts packet-aligned (start, stop) ranges.
+
+    Every range holds a whole number of packets; the final range carries
+    the file tail.  Ranges are balanced to within one packet.
+    """
+    n_packets = -(-file_size // packet_size) if file_size else 0
+    base, extra = divmod(n_packets, n_hosts)
+    ranges = []
+    start_pkt = 0
+    for h in range(n_hosts):
+        count = base + (1 if h < extra else 0)
+        start = start_pkt * packet_size
+        stop = min((start_pkt + count) * packet_size, file_size)
+        ranges.append((min(start, file_size), max(stop, min(start, file_size))))
+        start_pkt += count
+    return ranges
+
+
+def exclusive_scan(sizes: np.ndarray) -> np.ndarray:
+    """Byte offsets for each host's body given per-host compressed sizes."""
+    sizes = np.asarray(sizes, dtype=np.int64)
+    out = np.zeros_like(sizes)
+    np.cumsum(sizes[:-1], out=out[1:])
+    return out
+
+
+def walk_packet_index_chunks(stream, compressed_body_size: int,
+                             chunk_packets: int,
+                             block_size: int = 8 << 20):
+    """Incremental walk_packet_index: yields [2, k+1] segments of at most
+    chunk_packets packets (absolute offsets, same layout) as the walk
+    progresses, so decoding can start after ONE segment instead of after
+    a full-archive read (the de-serialized prologue, VERDICT r2 item 4).
+    """
+    buf = b""
+    buf_base = 0
+    pos = 0
+    raw_pos = 0
+    offsets = [0]
+    raw_offsets = [0]
+    while pos < compressed_body_size:
+        if pos + PACKET_HEADER_LENGTH > buf_base + len(buf):
+            stream.seek(pos)
+            buf = stream.read(min(block_size, compressed_body_size - pos))
+            buf_base = pos
+            if len(buf) < PACKET_HEADER_LENGTH:
+                raise container.ContainerError(
+                    "Incorrect file format: truncated packet header"
+                )
+        rel = pos - buf_base
+        total, raw = container.packet_sizes(
+            buf[rel:rel + PACKET_HEADER_LENGTH])
+        container.validate_packet_header(total, raw, UNCOMPRESSED_PACKET_SIZE)
+        pos += total
+        raw_pos += raw
+        offsets.append(pos)
+        raw_offsets.append(raw_pos)
+        if len(offsets) == chunk_packets + 1:
+            yield np.asarray([offsets, raw_offsets], dtype=np.int64)
+            offsets = [pos]
+            raw_offsets = [raw_pos]
+    if pos != compressed_body_size:
+        raise container.ContainerError(
+            "Incorrect file format: packet overruns the declared size"
+        )
+    if len(offsets) > 1:
+        yield np.asarray([offsets, raw_offsets], dtype=np.int64)
 
 
 def initialize(init_method: str | None = None, world_size: int | None = None,
@@ -364,3 +439,92 @@ class DistributedCompressor:
         info.process_time = process.total
         info.io_time = io.total
         return info
+
+
+class _IterPrefetcher:
+    """Drain an iterator on a daemon thread into a bounded queue.
+
+    Used to pull the segment-index stream (and its per-segment broadcast
+    collectives) OFF the decode critical path: the thread runs the walk
+    and the collectives ahead of the main loop, so by the time a rank
+    needs segment N+1 its index is already local.  Collective ordering
+    stays valid: each rank issues the stream's collectives from exactly
+    one thread, in stream order, and the main loop drains the stream to
+    exhaustion (thread done, all collectives issued) before the final
+    barrier.  Iterator errors re-raise on the consumer side."""
+
+    _DONE = object()
+
+    def __init__(self, it, depth: int = 8):
+        import queue
+        import threading
+
+        self._q = queue.Queue(maxsize=depth)
+        self._err = None
+        self._t = threading.Thread(
+            target=self._run, args=(it,), daemon=True)
+        self._t.start()
+
+    def _run(self, it):
+        try:
+            for item in it:
+                self._q.put(item)
+        except BaseException as exc:  # re-raised on the consumer thread
+            self._err = exc
+        finally:
+            self._q.put(self._DONE)
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        item = self._q.get()
+        if item is self._DONE:
+            self._t.join()
+            if self._err is not None:
+                raise self._err
+            raise StopIteration
+        return item
+
+
+class _BodyView:
+    """Seek/read view of a file past a fixed header offset."""
+
+    def __init__(self, stream, base: int):
+        self._stream = stream
+        self._base = base
+
+    def seek(self, pos: int) -> None:
+        self._stream.seek(self._base + pos)
+
+    def read(self, n: int) -> bytes:
+        return self._stream.read(n)
+
+
+def _load_segment_blob(body: "_BodyView", seg: np.ndarray,
+                       row_bytes: int, bucket_rows: int):
+    """Load one walked index segment straight into the row-aligned device
+    upload blob (pipeline._PacketReader.read_batch_blob's twin): the
+    segment body read IS the dense packet concatenation, so a single
+    native.expand_at scatter builds the blob.  Returns (blob, row_offsets,
+    comp_len, raw_sizes) for backend.decode_submit_blob."""
+    off = seg[0]
+    n = off.shape[0] - 1
+    comp_len = np.diff(off).astype(np.int32)
+    raw_sizes = np.diff(seg[1]).astype(np.int32)
+    base = int(off[0])
+    body.seek(base)
+    data = body.read(int(off[-1]) - base)
+    if len(data) < int(off[-1]) - base:
+        raise container.ContainerError(
+            "Incorrect file format: truncated packet body"
+        )
+    rcnt = (comp_len + row_bytes - 1) // row_bytes
+    roff = np.zeros(n, np.int32)
+    np.cumsum(rcnt[:-1], out=roff[1:])
+    rows = int(roff[-1] + rcnt[-1]) if n else 0
+    kb = -(-max(rows, 1) // bucket_rows) * bucket_rows
+    blob = native.expand_at(
+        np.frombuffer(data, np.uint8),
+        roff.astype(np.int64) * row_bytes, comp_len, kb * row_bytes)
+    return blob, roff, comp_len, raw_sizes

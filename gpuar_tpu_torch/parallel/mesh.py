@@ -30,8 +30,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from gpuar_tpu import native
-from gpuar_tpu.config import UNCOMPRESSED_PACKET_SIZE
+from gpuar_tpu_torch import native
+from gpuar_tpu_torch.config import UNCOMPRESSED_PACKET_SIZE
 from gpuar_tpu_torch.ops.decode import check_debug_flags
 from gpuar_tpu_torch.parallel.codec import DeviceCodec, _Slot
 

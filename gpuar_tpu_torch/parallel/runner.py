@@ -2,9 +2,9 @@
 
 The counterpart of ``gpuar_tpu/parallel/runner.py::TPUCompressor``: it
 plugs a MeshCodec over the local GPUs (every one by default, or the one
-``device_index`` pins) into the shared drive loops of
-``gpuar_tpu.pipeline.Compressor`` (read a super-batch, submit it, fetch the
-previous one, splice in order into the ``.gip`` container).  Each device's
+``device_index`` pins) into the drive loops of ``pipeline.Compressor``
+(read a super-batch, submit it, fetch the previous one, splice in order
+into the ``.gip`` container).  Each device's
 CUDA streams and per-batch events let batch N+1 run on the cards while the
 host writes batch N.  In a ``--multihost`` run each process's
 GPUCompressor codes that process's range on its own local GPUs
@@ -16,7 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from gpuar_tpu.pipeline import Compressor, DEFAULT_SUPER_BATCH_PACKETS
+from gpuar_tpu_torch.pipeline import Compressor, DEFAULT_SUPER_BATCH_PACKETS
 from gpuar_tpu_torch.parallel.codec import BUCKET_ROWS
 from gpuar_tpu_torch.parallel.mesh import MeshCodec
 
@@ -90,8 +90,7 @@ class GPUCompressor(Compressor):
     def decode_blob_geometry(self):
         return self.codec.row_bytes, BUCKET_ROWS
 
-    def decode_submit_blob(self, blob, roff, comp_len, raw_sizes,
-                           hull_hint=None):
+    def decode_submit_blob(self, blob, roff, comp_len, raw_sizes):
         return self.codec.decode_blob_async(blob, roff, comp_len, raw_sizes)
 
     def decode_fetch(self, handle):

@@ -14,6 +14,14 @@ import torch
 from gpuar_tpu import native
 from gpuar_tpu_torch.ops import encode as enc_ops
 from gpuar_tpu_torch.ops import torch_codec
+from test_torch_host import jax_native
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _jax_golden():
+    """The JAX package's golden codec (an oracle here), loaded first with
+    the bounded retry of ``jax_native``."""
+    jax_native()
 
 
 @pytest.fixture

@@ -14,13 +14,22 @@ import numpy as np
 import pytest
 import torch
 
-from gpuar_tpu import container, native
-from gpuar_tpu.pipeline import _PacketReader
+from gpuar_tpu import native
+from gpuar_tpu_torch import container
 from gpuar_tpu_torch.ops import _kernels, decode
 from gpuar_tpu_torch.ops.encode import out_geometry
+from gpuar_tpu_torch.pipeline import _PacketReader
+from test_torch_host import jax_native
 
 HULL_P = 512   # packet size of the hull-window content classes
 ROW_BYTES = 96
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _jax_golden():
+    """The JAX package's golden codec (an oracle here), loaded first with
+    the bounded retry of ``jax_native``."""
+    jax_native()
 
 
 @pytest.fixture
@@ -208,9 +217,13 @@ def pallas_debug_flags():
 
 
 def raised_packets(check, flags, comp_len):
+    """The message ``check`` raises (None if it passes); the JAX package's
+    ContainerError and the port's are both ValueErrors."""
     try:
         check(flags, comp_len, flags.shape[1])
-    except container.ContainerError as e:
+    except ValueError as e:
+        assert check is not decode.check_debug_flags \
+            or isinstance(e, container.ContainerError)
         return str(e)
     return None
 

@@ -25,10 +25,18 @@ from gpuar_tpu.parallel import distributed as jax_side
 from gpuar_tpu.pipeline import HostCompressor
 from gpuar_tpu_torch.parallel import distributed
 from gpuar_tpu_torch.parallel.runner import GPUCompressor
+from test_torch_host import jax_native
 
 REPO = Path(__file__).resolve().parent.parent
 CPU = torch.device("cpu")
 P = 8192
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _jax_golden():
+    """The JAX package's golden codec (an oracle here), loaded first with
+    the bounded retry of ``jax_native``."""
+    jax_native()
 
 _WORKER = textwrap.dedent("""
     import json, sys
@@ -141,7 +149,7 @@ def test_segment_stream_matches_the_jax_protocol(chunk, monkeypatch):
                         lambda x, group: (port_bus.append(x.copy()), x)[1])
     jax_sent = stream(jax_side, 0, jax_side._BodyView(io.BytesIO(blob), 0))
     port_sent = stream(distributed, 0,
-                       jax_side._BodyView(io.BytesIO(blob), 0))
+                       distributed._BodyView(io.BytesIO(blob), 0))
     assert len(port_bus) == len(jax_bus) >= 2
     for ours, theirs in zip(port_bus, jax_bus):
         np.testing.assert_array_equal(ours, jax_side._join_u32(theirs))
@@ -167,7 +175,7 @@ def test_segment_stream_chunk_mismatch_detected(monkeypatch):
     monkeypatch.setattr(distributed, "_broadcast",
                         lambda x, group: (bus.append(x.copy()), x)[1])
     list(distributed._segment_stream(
-        jax_side._BodyView(io.BytesIO(blob), 0), len(blob), rank=0,
+        distributed._BodyView(io.BytesIO(blob), 0), len(blob), rank=0,
         world=2, chunk_packets=2))
     replay = iter(bus)
     monkeypatch.setattr(distributed, "_broadcast",

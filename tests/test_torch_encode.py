@@ -11,6 +11,14 @@ import torch
 
 from gpuar_tpu import native
 from gpuar_tpu_torch.ops import _kernels, encode
+from test_torch_host import jax_native
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _jax_golden():
+    """The JAX package's golden codec (an oracle here), loaded first with
+    the bounded retry of ``jax_native``."""
+    jax_native()
 
 
 @pytest.fixture
@@ -175,7 +183,8 @@ def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
     to the plain version)."""
     monkeypatch.setattr(_kernels.shutil, "which", lambda name: None)
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
-    monkeypatch.setattr(_kernels, "library_path",
-                        lambda: tmp_path / "libgpuar_kernels_test.so")
+    monkeypatch.setattr(_kernels, "_BUILD_DIR", tmp_path / "_build")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _kernels.build()
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _kernels.function("gpuar_encode")

@@ -13,15 +13,23 @@ import numpy as np
 import pytest
 import torch
 
-from gpuar_tpu import container
-from gpuar_tpu.pipeline import _PacketReader
+from gpuar_tpu_torch import container
 from gpuar_tpu_torch.parallel.codec import BUCKET_ROWS, DeviceCodec
 from gpuar_tpu_torch.parallel.mesh import MeshCodec, shard_bounds
 from gpuar_tpu_torch.parallel.runner import GPUCompressor
+from gpuar_tpu_torch.pipeline import _PacketReader
+from test_torch_host import jax_native
 
 CPU = torch.device("cpu")
 P = 64
 N = 80
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _jax_golden():
+    """The JAX package's golden codec (an oracle here), loaded first with
+    the bounded retry of ``jax_native``."""
+    jax_native()
 
 
 @pytest.fixture(scope="module")

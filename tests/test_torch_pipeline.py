@@ -17,13 +17,22 @@ import numpy as np
 import pytest
 import torch
 
-from gpuar_tpu import container
-from gpuar_tpu.config import UNCOMPRESSED_PACKET_SIZE as P
-from gpuar_tpu.pipeline import HostCompressor, _resume_point
+from gpuar_tpu.pipeline import HostCompressor
+from gpuar_tpu_torch import container
+from gpuar_tpu_torch.config import UNCOMPRESSED_PACKET_SIZE as P
 from gpuar_tpu_torch.parallel.runner import GPUCompressor
+from gpuar_tpu_torch.pipeline import _resume_point
+from test_torch_host import jax_native
 
 REPO = Path(__file__).resolve().parent.parent
 CPU = torch.device("cpu")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _jax_golden():
+    """The JAX package's golden codec (an oracle here), loaded first with
+    the bounded retry of ``jax_native``."""
+    jax_native()
 
 
 @pytest.fixture
@@ -234,8 +243,8 @@ def test_compacted_body_path_matches_stride_path(rng):
     """DeviceCodec's compacted encode (device row gather + splice_at) gives
     exactly the stride path's spliced bytes, and the stride decode and the
     reader-built blob decode both round-trip them."""
-    from gpuar_tpu.pipeline import _PacketReader
     from gpuar_tpu_torch.parallel.codec import BUCKET_ROWS, DeviceCodec
+    from gpuar_tpu_torch.pipeline import _PacketReader
 
     codec = DeviceCodec(CPU, packet_size=64)
     n = 70
