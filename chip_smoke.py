@@ -8,7 +8,8 @@ toolkit (nvcc).  It imports nothing of JAX.  Phases, each printing one line
 with its result and its time; any failure is fatal (traceback, non-zero
 exit, no result line):
 
-  0. the card (nvidia-smi name and power limit), torch and CUDA versions;
+  0. the card (nvidia-smi name and power limit, maximum SM clock), torch
+     and CUDA versions;
   1. build the kernels from gpuar_tpu_torch/csrc for sm_90a;
   2. K1 (encode) on the card against its plain PyTorch version and the
      golden codec, on boundary sizes and content classes at 8192 B;
@@ -23,7 +24,10 @@ exit, no result line):
   5. the kernels at the main path's shapes: each kernel timed (CUDA
      events) on the file's three super-batches, and held against its
      plain version on the same card tensors at 0 tolerance on the full
-     batch 0 and the ragged batch 2; then kernel against plain version at
+     batch 0 and the ragged batch 2; on batch 0 the decode launch's
+     threads and shared memory per block, then K1, K2 and K3 timed on its
+     first n packets for n in 1, 132, 1024, 4096, 8192 (the 1-packet time
+     is a kernel's chain latency); then kernel against plain version at
      one small shape;
   6. every local GPU: the phase 4 file through a GPUCompressor whose
      MeshCodec splits each super-batch over every card, or, on a one-card
@@ -242,7 +246,14 @@ def phase0() -> str:
              "--format=csv,noheader"], capture_output=True, text=True)
         if smi.returncode == 0 and smi.stdout.strip():
             card = smi.stdout.strip().splitlines()[0]
+        clock = subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.max.sm",
+             "--format=csv,noheader"], capture_output=True, text=True)
+        clock = clock.stdout.strip().splitlines()[0] \
+            if clock.returncode == 0 and clock.stdout.strip() else "unknown"
     print(card, flush=True)
+    if shutil.which("nvidia-smi"):
+        print(f"maximum SM clock {clock}", flush=True)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}", flush=True)
     if not torch.cuda.is_available():
@@ -729,6 +740,41 @@ def against_plain(dev, data: np.ndarray, sizes: np.ndarray):
              "decode_debug": plain_dbg})
 
 
+SWEEP = (1, 132, 1024, 4096, 8192)   # packets of batch 0 in the sweep
+
+
+def decode_shape() -> tuple[int, int]:
+    """(threads per block, shared memory bytes per block) of the decode
+    launch."""
+    import ctypes
+
+    from gpuar_tpu_torch.ops import _kernels
+
+    vals = [ctypes.c_int() for _ in range(2)]
+    _kernels.check(_kernels.function("gpuar_decode_shape")(
+        *(ctypes.byref(v) for v in vals)), "decode shape")
+    return vals[0].value, vals[1].value
+
+
+def sweep(card, d, s, args) -> None:
+    """K1, K2 and K3 on the first n packets of batch 0 (SWEEP): a time that
+    stays flat as n grows is one packet's chain (latency), one that grows
+    with n is issue or bandwidth."""
+    from gpuar_tpu_torch import probes
+    from gpuar_tpu_torch.ops import decode, encode
+
+    blob, offs, rs = args
+    runs = {"K1 encode": lambda n: encode.encode_batch(d[:n], s[:n]),
+            "K2 decode": lambda n: decode.decode_blob(blob, offs[:n], rs[:n]),
+            "K3 debug decode": lambda n: decode.decode_blob(
+                blob, offs[:n], rs[:n], debug=True)}
+    for name, run in runs.items():
+        ms = {n: probes.time_ms(lambda: run(n)) for n in SWEEP}
+        times = ", ".join(f"n={n} {t:.4f} ms" for n, t in ms.items())
+        print(f"[{card}] sweep {name}, first n packets of batch 0: {times}; "
+              f"n=8192 / n=1 {ms[8192] / ms[1]:.3f}", flush=True)
+
+
 def phase5(card, dev, src, errs):
     """Each kernel on the main path's three super-batches (CUDA events).
     On batch 0 ([8192, 8192], full) and batch 2 ([4098, 8192], ragged)
@@ -765,13 +811,22 @@ def phase5(card, dev, src, errs):
             continue   # the same shape as batch 0
 
         if b == 0:
+            threads, smem = decode_shape()
+            print(f"[{card}] decode launch: {threads} threads per block, "
+                  f"{smem} B of shared memory per block, one packet per "
+                  f"thread, model a 4-ary prefix tree "
+                  f"({-(-data.shape[0] // threads)} blocks for "
+                  f"{data.shape[0]} packets)", flush=True)
+            sweep(card, d, s, args)
             # The least time for batch 0's work (bound): K1 reads the raw
             # bytes and sizes and writes the packets and lengths; K2 reads
             # the blob, offsets and sizes and writes the bytes (K3 also
-            # its flags).  Per symbol both update the model (256 - s adds)
-            # and do the coder's arithmetic, counted as 16 operations
-            # (two reads, two multiplies, two divisions, the narrowing,
-            # the renormalisation); the decoder's search as 8 more.
+            # its flags).  The operations are the plain version's, the
+            # function's own and not one design's: per symbol the model's
+            # update (256 - s adds) and the coder's arithmetic, counted as
+            # 16 operations (two reads, two multiplies, two divisions, the
+            # narrowing, the renormalisation); the decoder's search as 8
+            # more.
             n = data.shape[0]
             nsym, upd = model_ops(data, sizes, 256)
             dec_bytes = blob.size + offs.nbytes + rs.nbytes + n * P

@@ -4,7 +4,8 @@ The same codec and ``.gip`` archives as ``gpuar_tpu`` (the JAX package,
 which stays the reference), on NVIDIA GPUs: files are split into
 independent 8192-byte packets and each super-batch of packets is split
 over every local GPU and coded there by hand-written CUDA kernels
-(``csrc/``), one warp per packet.  Several processes code one file
+(``csrc/``): encode one warp per packet, decode one thread per packet.
+Several processes code one file
 together with the CLI's ``--multihost`` (``parallel/distributed.py``,
 torch.distributed over gloo); the library calls below run in one process.
 The host layer (config, container, the native golden codec, the

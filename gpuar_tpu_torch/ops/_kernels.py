@@ -45,6 +45,9 @@ SIGNATURES = {
     #              packet_size, out, flags, debug, stream)
     "gpuar_decode": ("decode", [_VP, _I64, _VP, _I32, _VP, _I32, _I32, _VP,
                                 _VP, _I32, _VP]),
+    # gpuar_decode_shape(*threads, *smem_bytes): gpuar_decode's threads and
+    # shared memory bytes per block
+    "gpuar_decode_shape": ("decode", [_VP, _VP]),
     # gpuar_probe_model(words, rows_in, tile, steps, repeat, variant, out,
     #                   table, stream)
     "gpuar_probe_model": ("probe_model", [_VP, _I32, _I32, _I32, _I32, _I32,

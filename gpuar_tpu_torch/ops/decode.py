@@ -3,8 +3,15 @@
 The counterpart of ``gpuar_tpu/ops/pallas_decode.py::decode_batch_pallas``
 (the TPU kernel ``_decode_kernel``; ``debug=True`` is K3).  A CUDA tensor
 goes to the hand-written kernel in ``csrc/decode.cu``; a CPU tensor goes
-to the plain version ``torch_codec.decode_packets``.  Nothing falls back:
-a CUDA input launches the kernel or raises.
+to the plain version ``torch_codec.decode_packets``, the kernel's
+anchor.  Nothing falls back: a CUDA input launches the kernel or raises.
+
+The kernel codes one packet per thread, in blocks of 64: each thread keeps
+its packet's model as a 4-ary prefix tree of the 256 counts, the top two
+levels in registers and the two below in shared memory
+(``csrc/packet_model.cuh``), so no warp collective is on the per-symbol
+path and a launch takes about one packet's serial chain, however many
+packets fill the card.
 
 Two input forms, one kernel:
 

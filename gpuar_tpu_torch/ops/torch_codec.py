@@ -64,6 +64,12 @@ def _renorm(lower, upper):
     return new_lower, new_upper, m, k
 
 
+def find_symbol(C: torch.Tensor, unscaled: torch.Tensor) -> torch.Tensor:
+    """The decoder's search: sym = #{i in 1..256 : C[i] <= unscaled},
+    clipped to 255, for tables C [B, 257] and targets unscaled [B]."""
+    return (C[:, 1:] <= unscaled[:, None]).sum(1).clamp(0, 255)
+
+
 def encode_scan(symbols: torch.Tensor, sizes: torch.Tensor):
     """symbols [steps, B], sizes [B] -> (desc [steps, B], pat [steps, B],
     tail_bit [B], tail_run [B]), int64, in ``ops.bitpack``'s descriptor
@@ -127,7 +133,7 @@ def decode_scan(words: torch.Tensor, raw_sizes: torch.Tensor, steps: int,
         span = (upper - lower + 1).clamp(min=1)
         num = (code - lower + 1) * cum - 1
         unscaled = num // span
-        sym = (C[:, 1:] <= unscaled[:, None]).sum(1).clamp(0, 255)
+        sym = find_symbol(C, unscaled)
         C2, cum2, lo2, up2 = _apply_symbol_range(C, cum, sym, lower, upper)
         if debug:
             bad = (unscaled >= cum) | (unscaled < 0) | (lo2 > up2)

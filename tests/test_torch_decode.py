@@ -4,7 +4,10 @@ reader-built blob form.
 
 On the CPU the wrappers run the plain version; the GPU-marked tests hold
 the CUDA kernel against it on the same cases.  Tolerance: 0 bytes, and
-for the debug variant equal flags.
+for the debug variant equal flags.  The kernel keeps each packet's model
+as a 4-ary prefix tree (csrc/packet_model.cuh, ``QuadModel``);
+``QuadMirror`` repeats its arithmetic in numpy, and the CPU tests hold it,
+and the kernel's division and renormalisation, to the plain version.
 """
 
 import functools
@@ -16,10 +19,10 @@ import torch
 
 from gpuar_tpu import native
 from gpuar_tpu_torch import container
-from gpuar_tpu_torch.ops import _kernels, decode
+from gpuar_tpu_torch.ops import _kernels, decode, torch_codec
 from gpuar_tpu_torch.ops.encode import out_geometry
 from gpuar_tpu_torch.pipeline import _PacketReader
-from test_torch_host import jax_native
+from test_torch_host import CORPUS_NAMES, corpora, jax_native
 
 HULL_P = 512   # packet size of the hull-window content classes
 ROW_BYTES = 96
@@ -312,3 +315,266 @@ def test_debug_kernel_matches_plain(cuda, form):
     want_raw, want = port_decode(form, packets, sizes, DEBUG_P, debug=True)
     np.testing.assert_array_equal(flags.cpu().numpy(), want.numpy())
     np.testing.assert_array_equal(raw.cpu().numpy(), want_raw.numpy())
+
+
+# --- the kernel's arithmetic: csrc/packet_model.cuh in numpy --------------
+
+
+def below(x, span, rem):
+    """The search's step test x <= unscaled, asked as x * span <= rem in
+    the kernel's int32 arithmetic (the products stay below 2^31)."""
+    assert (x * span).max() < 2 ** 31
+    return x * span <= rem
+
+
+class QuadMirror:
+    """``QuadModel``'s arithmetic for B packets at once: the root's S1..S3
+    (r), the level-1 nodes' (l1[:, i] for node 1 + i), the level-2 nodes
+    5..20 (l2) and the leaves 21..84 (l3), each {S1, S2, S3, S4}."""
+
+    def __init__(self, batch):
+        self.r = np.tile([64, 128, 192], (batch, 1))
+        self.l1 = np.tile([16, 32, 48], (batch, 4, 1))
+        self.l2 = np.tile([4, 8, 12, 16], (batch, 16, 1))
+        self.l3 = np.tile([1, 2, 3, 4], (batch, 64, 1))
+        self.rows = np.arange(batch)[:, None]
+
+    def prefix(self, s):
+        """C[s] for s [B, m] in [0, 255]: on each level, the S before s's
+        child (0 for child 0) of the node over s."""
+        def before(level):   # [B, nodes, 3] -> [B, 4 * nodes]
+            pad = np.concatenate([np.zeros_like(level[..., :1]), level], -1)
+            return pad.reshape(len(level), -1)
+
+        v = np.take_along_axis(before(self.r[:, None, :]), s >> 6, 1)
+        v += np.take_along_axis(before(self.l1), s >> 4, 1)
+        v += np.take_along_axis(before(self.l2[..., :3]), s >> 2, 1)
+        return v + np.take_along_axis(before(self.l3[..., :3]), s, 1)
+
+    def bump(self, s, active):
+        """Count s [B] where active, one node a level."""
+        on = active[:, None]
+        self.r += on * (s[:, None] < 64 * np.arange(1, 4))
+        d = (s[:, None] - 64 * np.arange(4)).astype(np.uint32)[..., None]
+        self.l1 += on[..., None] * (d < 16 * np.arange(1, 4))
+        r = self.rows[:, 0][active]
+        for level, k in ((self.l2, (s >> 2) & 3), (self.l3, s & 3)):
+            node = s >> (4 if level is self.l2 else 2)
+            level[r, node[active]] += (k[active, None] < np.arange(1, 5))
+
+    def search(self, num, span):
+        """(sym, low, high) for num, span [B, m]: the root and level 1 from
+        registers, then the level-2 node and the leaf."""
+        rem, lo = num.copy(), np.zeros_like(num)
+
+        def step(node):
+            t = [below(node[..., j], span, rem).astype(np.int64)
+                 for j in range(3)]
+            j = t[0] + t[1] + t[2]
+            pad = np.concatenate([np.zeros_like(node[..., :1]), node], -1)
+            base = np.take_along_axis(pad, j[..., None], -1)[..., 0]
+            return j, base
+
+        j0, base = step(self.r[:, None, :])
+        rem, lo = rem - base * span, lo + base
+        j1, base = step(self.l1[self.rows, j0])
+        rem, lo = rem - base * span, lo + base
+        n2 = 4 * j0 + j1
+        j2, base = step(self.l2[self.rows, n2])
+        rem, lo = rem - base * span, lo + base
+        leaf = self.l3[self.rows, 4 * n2 + j2]
+        j3, base = step(leaf)
+        high = lo + np.take_along_axis(leaf, j3[..., None], -1)[..., 0]
+        return 4 * (4 * n2 + j2) + j3, lo + base, high
+
+
+def test_model_mirror_matches_plain_model():
+    """Every fixture corpus, cut into 8192-byte packets and walked symbol
+    by symbol: after each step the mirror's prefix(s) equals the plain
+    version's cumulative table C[s] for every s, and its search equals the
+    plain search (and low = C[sym], high = C[sym + 1]) at unscaled in {-1,
+    0, cum - 1, cum, cum + 100}, each asked as num over a span."""
+    chunks = [c[o: o + 8192] for c in (corpora()[n] for n in CORPUS_NAMES)
+              for o in range(0, max(len(c), 1), 8192)]
+    batch, steps = len(chunks), max(len(c) for c in chunks)
+    data = np.zeros((batch, steps), np.int64)
+    sizes = np.array([len(c) for c in chunks])
+    for i, c in enumerate(chunks):
+        data[i, : len(c)] = np.frombuffer(c, np.uint8)
+    mirror = QuadMirror(batch)
+    C, cum, lower, upper = torch_codec._initial_model(batch, "cpu")
+    every = np.broadcast_to(np.arange(256), (batch, 256))
+    for t in range(steps + 1):
+        table = C.numpy()
+        assert (mirror.prefix(every) == table[:, :256]).all(), t
+        c = cum.numpy()[:, None]
+        unscaled = c + np.array([-c[0, 0] - 1, -c[0, 0], -1, 0, 100])
+        span = 1 + (t * 7919 + np.arange(batch)[:, None] * 104729) % 65536
+        num = np.where(unscaled < 0, -span, unscaled * span
+                       + (t * 31) % span)
+        sym, low, high = mirror.search(num, span)
+        want = torch_codec.find_symbol(
+            C.repeat_interleave(5, 0), torch.from_numpy(unscaled.ravel()))
+        want = want.numpy().reshape(batch, 5)
+        assert (sym == want).all(), t
+        assert (low == np.take_along_axis(table, want, 1)).all(), t
+        assert (high == np.take_along_axis(table, want + 1, 1)).all(), t
+        if t == steps:
+            break
+        active = t < sizes
+        s = torch.from_numpy(data[:, t])
+        C2, cum2, _, _ = torch_codec._apply_symbol_range(C, cum, s, lower,
+                                                         upper)
+        a = torch.from_numpy(active)
+        C, cum = torch.where(a[:, None], C2, C), torch.where(a, cum2, cum)
+        mirror.bump(data[:, t], active)
+
+
+def renorm_s(lo, hi):
+    """``renorm_s`` of csrc/packet_model.cuh in numpy (uint32, clz of 0 is
+    32) -> (lo, hi, s, k)."""
+    def clz(x):
+        x = x.astype(np.uint64)
+        n = np.zeros(x.shape, np.int64)
+        for b in (16, 8, 4, 2, 1):
+            top = (x >> np.uint64(32 - b)) == 0
+            n += top * b
+            x = np.where(top, x << np.uint64(b), x) & np.uint64(0xFFFFFFFF)
+        return n + (x == 0)
+
+    m = clz(lo ^ hi) - 16
+    x = (((lo & ~hi & 0xFFFF) << 16) << (m + 1)) & 0xFFFFFFFF
+    k = clz(~x & 0xFFFFFFFF)
+    s = m + k
+    return ((lo << s) & 0x7FFF, ((hi << s) | ((1 << s) - 1) | 0x8000)
+            & 0xFFFF, s, k)
+
+
+def test_renorm_s_matches_plain_renorm():
+    """renorm_s against the plain version's renormalisation on every pair
+    of a set of edge values and on a million random pairs, inverted pairs
+    (corrupt streams) included."""
+    edges = np.unique(np.concatenate([
+        [0, 1, 0x3FFF, 0x4000, 0x4001, 0x7FFE, 0x7FFF, 0x8000, 0x8001,
+         0xBFFF, 0xC000, 0xFFFE, 0xFFFF],
+        (1 << np.arange(16)), (1 << np.arange(16)) - 1,
+        0xFFFF ^ ((1 << np.arange(16)) - 1)]))
+    rng = np.random.default_rng(0x5E)
+    lo = np.concatenate([np.repeat(edges, len(edges)),
+                         rng.integers(0, 1 << 16, 1 << 20)])
+    hi = np.concatenate([np.tile(edges, len(edges)),
+                         rng.integers(0, 1 << 16, 1 << 20)])
+    got = renorm_s(lo.astype(np.int64), hi.astype(np.int64))
+    lo2, hi2, m, k = torch_codec._renorm(torch.from_numpy(lo),
+                                         torch.from_numpy(hi))
+    for a, b in zip(got, (lo2, hi2, m + k, k)):
+        np.testing.assert_array_equal(a, b.numpy())
+
+
+def test_div_by_reciprocal_is_exact():
+    """div_by: floor(x * inv / 2^32) plus one correction, inv =
+    floor((2^32 - 1) / cum), equals x // cum for every cum of the table
+    (256 .. 8704) at the edges of each quotient and at random x < 2^31."""
+    cum = np.arange(256, 8705, dtype=np.uint64)[:, None]
+    inv = np.uint64(0xFFFFFFFF) // cum
+    rng = np.random.default_rng(0xD1)
+    q = np.concatenate([np.zeros((len(cum), 1), np.uint64),
+                        rng.integers(1, (2 ** 31 - 1) // 8704, (len(cum), 8),
+                                     dtype=np.uint64),
+                        (np.uint64(2 ** 31 - 1) // cum) - np.uint64(1)], 1)
+    x = np.concatenate([q * cum, q * cum + cum - np.uint64(1),
+                        rng.integers(0, 2 ** 31, (len(cum), 8),
+                                     dtype=np.uint64)], 1)
+    got = (x * inv) >> np.uint64(32)
+    got = got + (x - got * cum >= cum)
+    np.testing.assert_array_equal(got, x // cum)
+
+
+# --- GPU: K2/K3 at partial blocks and on edge packets ---------------------
+
+
+def golden_batch(data, sizes, packet_size):
+    """(blob, byte offsets, comp_len, raw sizes) of golden-encoded packets,
+    as the reader builds them."""
+    packets = golden_stride(data, sizes, out_geometry(packet_size)[1] * 4)
+    blob, offs, comp_len = blob_form(packets, sizes, packet_size)
+    return blob, offs, comp_len
+
+
+def hold_to_plain(cuda, blob, offs, sizes, packet_size, data=None):
+    """K2 and K3 on the card against the plain version on the CPU (and the
+    data, where given) at 0; -> K3's flags."""
+    args = [torch.from_numpy(x) for x in (blob, offs, sizes)]
+    out = decode.decode_blob(*(a.to(cuda) for a in args),
+                             packet_size=packet_size)
+    raw, flags = decode.decode_blob(*(a.to(cuda) for a in args),
+                                    packet_size=packet_size, debug=True)
+    want_raw, want_flags = decode.decode_blob(*args, packet_size=packet_size,
+                                              debug=True)
+    np.testing.assert_array_equal(out.cpu().numpy(), want_raw.numpy())
+    np.testing.assert_array_equal(raw.cpu().numpy(), want_raw.numpy())
+    np.testing.assert_array_equal(flags.cpu().numpy(), want_flags.numpy())
+    if data is not None:
+        np.testing.assert_array_equal(out.cpu().numpy(), data)
+    return flags.cpu().numpy()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n, p", [(1, 256), (31, 256), (33, 256), (65, 256),
+                                  (4097, 256), (33, 102)])
+def test_kernel_partial_blocks_match_plain(cuda, n, p):
+    """Packet counts that leave a partial warp or block (64 packets a
+    block): mixed contents and ragged sizes at p bytes (102: rows that
+    are not whole 32-bit words, stored byte by byte)."""
+    rng = np.random.default_rng(n)
+    data = rng.integers(0, 256, (n, p), np.uint8)
+    data[::3] = rng.integers(60, 68, (len(data[::3]), p), np.uint8)
+    sizes = np.full(n, p, np.int32)
+    sizes[1::5] = rng.integers(0, p + 1, len(sizes[1::5]))
+    for i, s in enumerate(sizes):
+        data[i, s:] = 0
+    blob, offs, comp_len = golden_batch(data, sizes, p)
+    flags = hold_to_plain(cuda, blob, offs, sizes, p, data)
+    decode.check_debug_flags(flags, comp_len, n)
+
+
+def edge_batch():
+    """Full-size packets at the search's and the coder's edges: one
+    repeated symbol (0x00, 0xFF: the descent's two ends), raw sizes 0, 1
+    and 8191, the underflow adversary; then noise-bodied copies of the
+    compressible ones.  -> (data, sizes, blob, offs, comp_len, n_clean)."""
+    from test_torch_encode import adversarial_underflow_packet
+
+    P = 8192
+    rng = np.random.default_rng(0xED6E)
+    data = np.zeros((6, P), np.uint8)
+    data[1] = 0xFF
+    data[3, 0] = 0x7F
+    data[4] = rng.integers(0, 256, P, np.uint8)
+    data[5] = adversarial_underflow_packet(P)
+    sizes = np.array([P, P, 0, 1, P - 1, P], np.int32)
+    data[4, P - 1] = 0
+    packets = golden_stride(data, sizes, out_geometry(P)[1] * 4)
+    lens = packets[:, 0].astype(np.int32) | (packets[:, 1].astype(np.int32)
+                                             << 8)
+    noisy = packets[[0, 1, 5]].copy()
+    for row, i in zip(noisy, (0, 1, 5)):
+        row[4: lens[i]] = rng.integers(0, 256, lens[i] - 4, np.uint8)
+    all_pk = np.concatenate([packets, noisy])
+    all_sizes = np.concatenate([sizes, sizes[[0, 1, 5]]])
+    blob, offs, comp_len = blob_form(all_pk, all_sizes, P)
+    return data, all_sizes, blob, offs, comp_len, len(sizes)
+
+
+@pytest.mark.gpu
+def test_kernel_edge_packets_match_plain(cuda):
+    data, sizes, blob, offs, comp_len, n = edge_batch()
+    flags = hold_to_plain(cuda, blob, offs, sizes, 8192)
+    raw = decode.decode_blob(*(torch.from_numpy(x).to(cuda)
+                               for x in (blob, offs, sizes)))
+    np.testing.assert_array_equal(raw[:n].cpu().numpy(), data)
+    # K3 raises for exactly the noise-bodied packets.
+    with pytest.raises(container.ContainerError) as info:
+        decode.check_debug_flags(flags, comp_len, len(sizes))
+    assert str(info.value).endswith(f"packets {list(range(n, len(sizes)))}")
+    decode.check_debug_flags(flags[:, :n], comp_len[:n], n)
