@@ -10,7 +10,8 @@ exit, no result line):
 
   0. the card (nvidia-smi name and power limit, maximum SM clock), torch
      and CUDA versions;
-  1. build the kernels from gpuar_tpu_torch/csrc for sm_90a;
+  1. build the kernels from gpuar_tpu_torch/csrc for sm_90a, and print
+     ptxas's registers, stack and spills of K1, K2 and K3;
   2. K1 (encode) on the card against its plain PyTorch version and the
      golden codec, on boundary sizes and content classes at 8192 B;
   3. K2 (decode) against its plain version from a compacted blob, and K3
@@ -24,8 +25,9 @@ exit, no result line):
   5. the kernels at the main path's shapes: each kernel timed (CUDA
      events) on the file's three super-batches, and held against its
      plain version on the same card tensors at 0 tolerance on the full
-     batch 0 and the ragged batch 2; on batch 0 the decode launch's
-     threads and shared memory per block, then K1, K2 and K3 timed on its
+     batch 0 and the ragged batch 2; on batch 0 the codec kernels' launch
+     (threads and shared memory per block, one line: K1, K2 and K3 launch
+     the same blocks), then K1, K2 and K3 timed on its
      first n packets for n in 1, 132, 1024, 4096, 8192 (the 1-packet time
      is a kernel's chain latency); then kernel against plain version at
      one small shape;
@@ -83,6 +85,7 @@ import hashlib
 import io
 import json
 import os
+import re
 import shutil
 import socket
 import subprocess
@@ -277,7 +280,30 @@ def phase1():
     say("1 build", f"nvcc {' '.join(_kernels.NVCC_FLAGS)} -> "
         f"{', '.join(_kernels.library_path(p).name for p in _kernels.sources())}"
         f" ({len(libs)} libraries)", t0)
+    for stem in ("encode", "decode"):
+        for line in ptxas_usage(_kernels.BUILD_LOGS[stem]):
+            print(f"[1 build] ptxas {stem}.cu {line}", flush=True)
     return seconds
+
+
+def ptxas_usage(log: str) -> list[str]:
+    """Each kernel's registers, stack and spills from nvcc's -Xptxas -v
+    report, one line a kernel (its mangled name first)."""
+    lines, name, frame = [], None, ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            frame = (f"{m.group(1)} B stack, {m.group(2)} B spill stores, "
+                     f"{m.group(3)} B spill loads")
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            lines.append(f"{name}: {m.group(1)} registers, {frame}")
+            name, frame = None, ""
+    return lines
 
 
 def phase2(dev, errs):
@@ -743,9 +769,10 @@ def against_plain(dev, data: np.ndarray, sizes: np.ndarray):
 SWEEP = (1, 132, 1024, 4096, 8192)   # packets of batch 0 in the sweep
 
 
-def decode_shape() -> tuple[int, int]:
-    """(threads per block, shared memory bytes per block) of the decode
-    launch."""
+def codec_shape() -> tuple[int, int]:
+    """(threads per block, shared memory bytes per block) of the codec
+    kernels' launch: K1, K2 and K3 all launch PacketModel's blocks, which
+    gpuar_decode_shape reports."""
     import ctypes
 
     from gpuar_tpu_torch.ops import _kernels
@@ -811,10 +838,10 @@ def phase5(card, dev, src, errs):
             continue   # the same shape as batch 0
 
         if b == 0:
-            threads, smem = decode_shape()
-            print(f"[{card}] decode launch: {threads} threads per block, "
-                  f"{smem} B of shared memory per block, one packet per "
-                  f"thread, model a 4-ary prefix tree "
+            threads, smem = codec_shape()
+            print(f"[{card}] K1, K2 and K3 launch: {threads} threads per "
+                  f"block, {smem} B of shared memory per block, one packet "
+                  f"per thread, model a 4-ary prefix tree "
                   f"({-(-data.shape[0] // threads)} blocks for "
                   f"{data.shape[0]} packets)", flush=True)
             sweep(card, d, s, args)

@@ -1,10 +1,15 @@
 // Shared pieces of the per-packet adaptive arithmetic coder kernels.
 //
-// One warp codes one packet.  The adaptive model's cumulative counts
-// C[0..256] live in registers: lane j holds C[8j+1 .. 8j+8], and C[0] = 0
-// is implicit.  Coder state (bounds, code, bit cursor) is uniform across
-// the warp: every lane computes it redundantly, so the per-symbol chain
-// has no broadcast beyond the two table reads below.
+// The coder's arithmetic (narrow, renorm, the constants) serves every
+// kernel.  The warp helpers below serve the probes P1-P4 alone
+// (probe_model.cu, profile_encode.cu, probe_layouts.cu), which keep the
+// first codec design: one warp codes one packet.  The adaptive model's
+// cumulative counts C[0..256] live in registers: lane j holds C[8j+1 ..
+// 8j+8], and C[0] = 0 is implicit.  Coder state (bounds, code, bit
+// cursor) is uniform across the warp: every lane computes it redundantly,
+// so the per-symbol chain has no broadcast beyond the two table reads
+// below.  The codec kernels K1-K3 code one packet per thread instead
+// (packet_model.cuh).
 #pragma once
 
 #include <cstdint>

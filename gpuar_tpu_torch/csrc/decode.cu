@@ -43,8 +43,6 @@
 // clamp keeps inside the blob.
 #include <cuda_runtime.h>
 
-#include <atomic>
-
 #include "coder.cuh"
 #include "packet_model.cuh"
 
@@ -115,9 +113,7 @@ __device__ __forceinline__ void put4(uint8_t* row, int i, uint32_t w,
     row[i + j] = static_cast<uint8_t>(w >> (8 * j));
 }
 
-// Blocks of 64 packets, each thread's model in the block's dynamic shared
-// memory.
-using Model = QuadModel<64>;
+using Model = PacketModel;
 
 template <bool kDebug>
 __global__ void __launch_bounds__(Model::kBlock)
@@ -195,25 +191,15 @@ decode_kernel(const uint8_t* __restrict__ blob, int64_t blob_len,
   }
 }
 
-constexpr int kMaxDevices = 64;
-
 template <bool kDebug>
 int launch(const uint8_t* b, int64_t blob_len, const int64_t* o, int region,
            const int* r, int n, int packet_size, uint8_t* d, int* f,
            cudaStream_t s) {
   const auto kernel = decode_kernel<kDebug>;
-  // Above 48 KB a block's dynamic shared memory must be allowed first.
-  // The allowance is the current device's state: set it once per device.
-  static std::atomic<bool> allowed[kMaxDevices];
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
+  static SharedAllowance allowance;
+  const cudaError_t e = allowance.allow(reinterpret_cast<const void*>(kernel),
+                                        Model::kBytes);
   if (e != cudaSuccess) return static_cast<int>(e);
-  if (dev >= kMaxDevices || !allowed[dev].load(std::memory_order_acquire)) {
-    e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Model::kBytes);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    if (dev < kMaxDevices) allowed[dev].store(true, std::memory_order_release);
-  }
   kernel<<<(n + Model::kBlock - 1) / Model::kBlock, Model::kBlock,
            Model::kBytes, s>>>(b, blob_len, o, region, r, n, packet_size, d,
                                f);
@@ -235,7 +221,8 @@ extern "C" int gpuar_decode(const void* blob, int64_t blob_len,
             static_cast<cudaStream_t>(stream));
 }
 
-// gpuar_decode's launch: threads and dynamic shared memory bytes per block.
+// gpuar_decode's launch: threads and dynamic shared memory bytes per block
+// (PacketModel's, so gpuar_encode's too).
 extern "C" int gpuar_decode_shape(int* threads, int* smem_bytes) {
   *threads = Model::kBlock;
   *smem_bytes = Model::kBytes;

@@ -22,6 +22,9 @@
 // plus a constant or a multiple of the entry's index.
 #pragma once
 
+#include <cuda_runtime.h>
+
+#include <atomic>
 #include <cstdint>
 
 #include "coder.cuh"
@@ -124,7 +127,9 @@ struct QuadModel {
 
   // Count one occurrence of s: on each level, the node over s adds 1 to
   // each Sj past s's child.  The 2 shared nodes' addresses follow from s
-  // alone, so neither waits on the other.
+  // alone, so neither waits on the other: both are loaded before either
+  // is stored (the compiler cannot tell that the two never alias, so a
+  // store between them would hold the second load back).
   __device__ __forceinline__ void bump(int s) {
 #pragma unroll
     for (int j = 0; j < 3; ++j) r[j] += s < 64 * (j + 1);
@@ -135,14 +140,35 @@ struct QuadModel {
       b[i] += d < 32;
       c[i] += d < 48;
     }
-#pragma unroll
-    for (int level = 2, first = 5; level < 4; ++level, first = 21) {
-      const int k = (s >> (6 - 2 * level)) & 3;
-      uint4& v = node(first + (s >> (8 - 2 * level)));
-      const uint4 old = v;
-      v = make_uint4(old.x + (k < 1), old.y + (k < 2), old.z + (k < 3),
-                     old.w + 1u);
-    }
+    uint4& m = node(5 + (s >> 4));
+    uint4& v = node(21 + (s >> 2));
+    const uint4 om = m, ov = v;
+    m = counted(om, (s >> 2) & 3);
+    v = counted(ov, s & 3);
+  }
+
+  // Node n after counting a symbol under its child k.
+  __device__ __forceinline__ static uint4 counted(uint4 n, int k) {
+    return make_uint4(n.x + (k < 1), n.y + (k < 2), n.z + (k < 3),
+                      n.w + 1u);
+  }
+
+  // low = C[s] and high = C[s + 1] for s in [0, 255]: on each level, the
+  // S before s's child (0 for child 0) of the node over s; high takes the
+  // leaf's S of s's own child instead.  The root and level 1 come from
+  // registers by selects, and the two shared nodes' addresses follow from
+  // s alone, so both loads go out together.
+  __device__ __forceinline__ void prefix(int s, uint32_t& low,
+                                         uint32_t& high) const {
+    const uint4 m = node(5 + (s >> 4));
+    const uint4 v = node(21 + (s >> 2));
+    const int j0 = s >> 6, j1 = (s >> 4) & 3, j2 = (s >> 2) & 3, j3 = s & 3;
+    const uint32_t base =
+        sel(j0, 0u, r[0], r[1], r[2]) +
+        sel(j1, 0u, pick(a, j0), pick(b, j0), pick(c, j0)) +
+        sel(j2, 0u, m.x, m.y, m.z);
+    low = base + sel(j3, 0u, v.x, v.y, v.z);
+    high = base + sel(j3, v.x, v.y, v.z, v.w);
   }
 
   // The symbol whose range holds the code: sym = #{i in 1..256 : C[i] <=
@@ -173,11 +199,18 @@ struct QuadModel {
     return 4 * (n3 - 21) + t1 + t2 + t3;
   }
 
+  // x_j for j in [0, 3], by selects.
+  __device__ __forceinline__ static uint32_t sel(int j, uint32_t x0,
+                                                 uint32_t x1, uint32_t x2,
+                                                 uint32_t x3) {
+    return j & 2 ? (j & 1 ? x3 : x2) : (j & 1 ? x1 : x0);
+  }
+
   // x[j] for j in [0, 3], by selects (a dynamic index into a register
   // array would put it in local memory).
   __device__ __forceinline__ static uint32_t pick(const uint32_t (&x)[4],
                                                   int j) {
-    return j & 2 ? (j & 1 ? x[3] : x[2]) : (j & 1 ? x[1] : x[0]);
+    return sel(j, x[0], x[1], x[2], x[3]);
   }
 
   // One level of the search over a node's S1..S3: its child number, with
@@ -194,6 +227,35 @@ struct QuadModel {
     lo += t2 ? (t3 ? s3 : s2) : (t1 ? s1 : 0u);
     return t1 + t2 + t3;
   }
+};
+
+// The codec kernels' model (K1, K2, K3): blocks of 64 packets, each
+// thread's model in the block's dynamic shared memory.
+using PacketModel = QuadModel<64>;
+
+// Above 48 KB a block's dynamic shared memory must be allowed first, and
+// the allowance is the current device's state: a launch site keeps one
+// of these per kernel and calls allow() before each launch, which sets
+// the allowance once per device.
+class SharedAllowance {
+ public:
+  cudaError_t allow(const void* kernel, int bytes) {
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return e;
+    if (dev < kMaxDevices && done_[dev].load(std::memory_order_acquire))
+      return cudaSuccess;
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+    if (e == cudaSuccess && dev < kMaxDevices)
+      done_[dev].store(true, std::memory_order_release);
+    return e;
+  }
+
+ private:
+  static constexpr int kMaxDevices = 64;
+  std::atomic<bool> done_[kMaxDevices] = {};
 };
 
 }  // namespace gpuar

@@ -8,6 +8,8 @@ missing library, all at once.  Nothing is built at import: a wrapper's
 first launch builds the library it needs (``function``), so the CPU test
 suite, which never launches a kernel, needs no CUDA toolkit.  No source
 is built with fast math: the probes' float32 tricks need IEEE rounding.
+``BUILD_LOGS`` keeps what each build printed, ptxas's registers and
+spills of every kernel among it.
 
 Each launcher returns ``cudaGetLastError()`` after its launch; ``check``
 raises on a non-zero code.  ``LAUNCHES`` counts the codec kernels'
@@ -68,7 +70,10 @@ SIGNATURES = {
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# What nvcc printed for each library built in this process (with -v,
+# ptxas's registers, stack and spills of every kernel), by source stem.
+BUILD_LOGS: dict[str, str] = {}
 
 # Kernel launches through the wrappers, by kernel: K1, K2 (release
 # decode) and K3 (debug decode).
@@ -139,12 +144,13 @@ def build(stems: list[str] | None = None) -> dict[str, Path]:
         out = outs[src.stem]
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)]
-        jobs.append((cmd, tmp, out, subprocess.Popen(
+        jobs.append((src.stem, cmd, tmp, out, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))
     failed = []
-    for cmd, tmp, out, proc in jobs:
+    for stem, cmd, tmp, out, proc in jobs:
         log, _ = proc.communicate()
+        BUILD_LOGS[stem] = log
         if proc.returncode != 0:
             failed.append(f"nvcc failed (exit {proc.returncode}):\n"
                           f"{' '.join(cmd)}\n{log}")

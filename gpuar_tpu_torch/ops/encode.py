@@ -2,7 +2,8 @@
 
 The counterpart of ``gpuar_tpu/ops/pallas_encode.py::encode_batch_pallas``
 (the TPU kernel ``_encode_kernel``).  A CUDA tensor goes to the
-hand-written kernel in ``csrc/encode.cu``; a CPU tensor goes to the plain
+hand-written kernel in ``csrc/encode.cu`` (one packet per thread); a CPU
+tensor goes to the plain
 version ``torch_codec.encode_packets``.  Nothing falls back: a CUDA input
 launches the kernel or raises.
 """
@@ -52,6 +53,8 @@ def encode_batch(data: torch.Tensor, sizes: torch.Tensor):
     if data.device.type != "cuda":
         raise ValueError(f"unsupported device {data.device}")
     data = data.contiguous()
+    if data.data_ptr() % 16:   # the kernel reads aligned 16-byte words
+        data = data.clone()
     sizes = sizes.contiguous()
     packets = torch.empty((n, stride), dtype=torch.uint8, device=data.device)
     lengths = torch.empty(n, dtype=torch.int32, device=data.device)

@@ -5,13 +5,16 @@ On the CPU the wrapper runs the plain version; the GPU-marked tests hold
 the CUDA kernel against it on the same cases.  Tolerance: 0 bytes.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
 
 from gpuar_tpu import native
 from gpuar_tpu_torch.ops import _kernels, encode
-from test_torch_host import jax_native
+from gpuar_tpu_torch.ops.encode import out_geometry
+from test_torch_host import CORPUS_NAMES, corpora, jax_native
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -149,6 +152,167 @@ def test_encode_rejects_bad_input(bad):
         encode.encode_batch(data, sizes)
 
 
+# --- the kernel's arithmetic: csrc/encode.cu in numpy ---------------------
+
+INV = np.uint64(0xFFFFFFFF) // np.arange(256, 8705, dtype=np.uint64)
+
+
+class ThreadEncoder:
+    """``encode_kernel``'s arithmetic for B packets at once, one per
+    thread: low and high from ``QuadMirror.prefix`` and the leaf, the
+    divisions by cum as ``div_by`` with the reciprocal table, ``renorm_s``,
+    and ``BitWriter`` with its composed emission and long-run loop.
+    ``mutant`` breaks one piece ("no_run": the pending run is dropped;
+    "no_correction": the reciprocal quotient is not corrected)."""
+
+    def __init__(self, batch, stride, mutant=None):
+        self.out = np.zeros((batch, stride), np.uint8)
+        self.acc = np.zeros(batch, np.uint64)
+        self.n = np.zeros(batch, np.int64)
+        self.pos = np.full(batch, 4, np.int64)
+        self.mutant = mutant
+
+    def put(self, v, k, on):
+        """put(v, k <= 32) on the threads where ``on``."""
+        v, k = np.asarray(v, np.uint64), np.asarray(k, np.uint64)
+        self.acc = np.where(on, (self.acc << k) | v, self.acc)
+        self.n = np.where(on, self.n + k.astype(np.int64), self.n)
+        full = on & (self.n >= 32)
+        self.n = np.where(full, self.n - 32, self.n)
+        w = (self.acc >> self.n.astype(np.uint64)) & np.uint64(0xFFFFFFFF)
+        rows = np.nonzero(full & (self.pos + 4 <= self.out.shape[1]))[0]
+        for b in range(4):   # big-endian
+            self.out[rows, self.pos[rows] + b] = \
+                (w[rows] >> np.uint64(24 - 8 * b)) & np.uint64(0xFF)
+        self.pos = np.where(full, self.pos + 4, self.pos)
+
+    def run(self, bit, length, on):
+        length = np.where(on, length, 0)
+        while length.any():
+            c = np.minimum(length, 32)
+            ones = (np.uint64(1) << c.astype(np.uint64)) - np.uint64(1)
+            self.put(np.where(bit == 1, ones, 0), c, length > 0)
+            length = length - c
+
+    def settle(self, top, m, under, on):
+        """The m settled bits, the first followed by the pending run."""
+        if self.mutant == "no_run":
+            under = np.zeros_like(under)
+        length = np.where(m > 0, m + under, 0)
+        fast = length <= 32
+        r = np.where(fast & (m > 0), under, 0)
+        sh = np.where(m > 0, m - 1, 0)
+        self.put(top + (((1 << r) - 1) << sh), length, on & fast)
+        slow = on & ~fast
+        if slow.any():
+            b0 = np.where(slow, top >> np.maximum(m - 1, 0), 0)
+            self.put(b0, 1, slow)
+            self.run(b0 ^ 1, under, slow)
+            mask = (1 << np.maximum(m - 1, 0)) - 1
+            self.put(top & mask, np.where(slow, m - 1, 0), slow)
+
+    def close(self):
+        rows = np.arange(len(self.n))
+        while (self.n >= 8).any():
+            full = self.n >= 8
+            self.n = np.where(full, self.n - 8, self.n)
+            byte = (self.acc >> self.n.astype(np.uint64)) & np.uint64(0xFF)
+            self.out[rows[full], self.pos[full]] = byte[full]
+            self.pos = np.where(full, self.pos + 1, self.pos)
+        left = self.n > 0
+        byte = (self.acc << (8 - self.n).astype(np.uint64)) & np.uint64(0xFF)
+        self.out[rows[left], self.pos[left]] = byte[left]
+        self.pos = np.where(left, self.pos + 1, self.pos)
+        self.n[:] = 0
+
+    def div_by(self, x, cum, inv):
+        q = (x.astype(np.uint64) * inv) >> np.uint64(32)
+        if self.mutant != "no_correction":
+            q = q + (x.astype(np.uint64) - q * cum >= cum)
+        return q.astype(np.int64)
+
+
+def mirror_encode(data, sizes, stride, mutant=None):
+    """(packets [B, stride] uint8, lengths [B]) of encode_kernel's
+    arithmetic on data [B, P] with sizes [B]."""
+    from test_torch_decode import QuadMirror, renorm_s
+
+    batch = data.shape[0]
+    model, enc = QuadMirror(batch), ThreadEncoder(batch, stride, mutant)
+    rows = np.arange(batch)
+    lo = np.zeros(batch, np.int64)
+    hi = np.full(batch, 0xFFFF, np.int64)
+    under = np.zeros(batch, np.int64)
+    for t in range(int(sizes.max(initial=0))):
+        on = t < sizes
+        cum, inv = 256 + t, INV[t]
+        s = data[:, t].astype(np.int64)
+        low = model.prefix(s[:, None])[:, 0]
+        leaf = model.l3[rows, s >> 2]
+        j3 = s & 3
+        high = low - np.where(j3 > 0, leaf[rows, np.maximum(j3 - 1, 0)], 0) \
+            + leaf[rows, j3]
+        span = hi - lo + 1
+        hi2 = (lo + enc.div_by(high * span, cum, inv) - 1) & 0xFFFF
+        lo2 = (lo + enc.div_by(low * span, cum, inv)) & 0xFFFF
+        model.bump(s, on)
+        settled = hi2
+        lo2, hi2, sh, k = renorm_s(lo2, hi2)
+        m = sh - k
+        enc.settle(settled >> (16 - m), m, under, on)
+        under = np.where(on, np.where(m > 0, k, under + k), under)
+        lo, hi = np.where(on, lo2, lo), np.where(on, hi2, hi)
+    tb = (lo >> 14) & 1
+    every = np.ones(batch, bool)
+    enc.put(tb, 1, every)
+    enc.run(tb ^ 1, under + 1, every)
+    enc.close()
+    enc.out[:, 0] = enc.pos & 0xFF
+    enc.out[:, 1] = (enc.pos >> 8) & 0xFF
+    enc.out[:, 2] = sizes & 0xFF
+    enc.out[:, 3] = sizes >> 8
+    return enc.out, enc.pos
+
+
+@functools.lru_cache(maxsize=None)
+def mirror_batch():
+    """Every fixture corpus cut into 8192-byte packets, then the underflow
+    adversary: (data [B, 8192], sizes [B])."""
+    chunks = [c[o: o + 8192] for c in (corpora()[n] for n in CORPUS_NAMES)
+              for o in range(0, max(len(c), 1), 8192)]
+    chunks.append(adversarial_underflow_packet().tobytes())
+    data = np.zeros((len(chunks), 8192), np.uint8)
+    for i, c in enumerate(chunks):
+        data[i, : len(c)] = np.frombuffer(c, np.uint8)
+    return data, np.array([len(c) for c in chunks], np.int64)
+
+
+@functools.lru_cache(maxsize=None)
+def mirrored(mutant):
+    data, sizes = mirror_batch()
+    return mirror_encode(data, sizes, out_geometry(8192)[1] * 4, mutant)
+
+
+def test_thread_encoder_mirror_matches_golden():
+    """The per-thread encoder's arithmetic equals the golden codec at 0 on
+    every fixture corpus and on the underflow adversary (its ~133-bit
+    pending run takes the long-run loop)."""
+    data, sizes = mirror_batch()
+    packets, lengths = mirrored(None)
+    assert_golden(packets, lengths, data, sizes)
+
+
+@pytest.mark.parametrize("mutant", ["no_run", "no_correction"])
+def test_thread_encoder_mirror_catches_mutants(mutant):
+    """The mirror's check has teeth: with the pending run dropped, or the
+    reciprocal quotient left uncorrected, some packet differs from the
+    golden codec."""
+    data, sizes = mirror_batch()
+    packets, lengths = mirrored(mutant)
+    with pytest.raises(AssertionError):
+        assert_golden(packets, lengths, data, sizes)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", sorted(CASES) + ["adversary_8192",
                                                   "ragged_8192"])
@@ -164,6 +328,24 @@ def test_kernel_matches_plain(cuda, case):
             data[i, s:] = 0
     else:
         data, sizes = CASES[case](rng)
+    hold_kernel_to_plain(cuda, data, sizes)
+
+
+def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
+    """No CUDA toolkit: the build raises a clear error (nothing falls back
+    to the plain version)."""
+    monkeypatch.setattr(_kernels.shutil, "which", lambda name: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(_kernels, "_BUILD_DIR", tmp_path / "_build")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _kernels.build()
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _kernels.function("gpuar_encode")
+
+
+def hold_kernel_to_plain(cuda, data, sizes):
+    """K1 on the card, launched once, against the plain version on the CPU
+    and the golden codec at 0."""
     d, s = torch.from_numpy(data), torch.from_numpy(sizes)
     before = _kernels.LAUNCHES["encode"]
     pk, ln = encode.encode_batch(d.to(cuda), s.to(cuda))
@@ -178,13 +360,19 @@ def test_kernel_matches_plain(cuda, case):
     assert_golden(pk, ln.cpu().numpy(), data, sizes)
 
 
-def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
-    """No CUDA toolkit: the build raises a clear error (nothing falls back
-    to the plain version)."""
-    monkeypatch.setattr(_kernels.shutil, "which", lambda name: None)
-    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
-    monkeypatch.setattr(_kernels, "_BUILD_DIR", tmp_path / "_build")
-    with pytest.raises(RuntimeError, match="nvcc not found"):
-        _kernels.build()
-    with pytest.raises(RuntimeError, match="nvcc not found"):
-        _kernels.function("gpuar_encode")
+@pytest.mark.gpu
+@pytest.mark.parametrize("n, p", [(1, 256), (63, 256), (64, 256), (65, 256),
+                                  (4097, 256), (33, 100)])
+def test_kernel_partial_blocks_match_plain(cuda, n, p):
+    """Packet counts that leave a partial warp or block (64 packets a
+    block): mixed contents and ragged sizes at p bytes (100: rows read 4
+    bytes at a time, not 16)."""
+    rng = np.random.default_rng(n + p)
+    data = rng.integers(0, 256, (n, p), np.uint8)
+    data[::3] = rng.integers(60, 68, (len(data[::3]), p), np.uint8)
+    data[1::7] = adversarial_underflow_packet(p)
+    sizes = np.full(n, p, np.int32)
+    sizes[1::5] = rng.integers(0, p + 1, len(sizes[1::5]))
+    for i, s in enumerate(sizes):
+        data[i, s:] = 0
+    hold_kernel_to_plain(cuda, data, sizes)
