@@ -11,7 +11,10 @@ exit, no result line):
   0. the card (nvidia-smi name and power limit, maximum SM clock), torch
      and CUDA versions;
   1. build the kernels from gpuar_tpu_torch/csrc for sm_90a, and print
-     ptxas's registers, stack and spills of K1, K2 and K3;
+     ptxas's registers, stack and spills of K1, K2 and K3, and of P1's
+     v0_3pass_256 and P3's level 5; and, from cuobjdump's SASS, the
+     shared-memory loads of P1's v8_raw_sum_256 (at least 256 a step of
+     its chunk loop, so no step's table sum was hoisted or reused);
   2. K1 (encode) on the card against its plain PyTorch version and the
      golden codec, on boundary sizes and content classes at 8192 B;
   3. K2 (decode) against its plain version from a compacted blob, and K3
@@ -51,9 +54,13 @@ exit, no result line):
   8. the probes P1-P4: ``python -m gpuar_tpu_torch.probes`` as a user runs
      it (every variant, configuration, level and primitive timed at the
      TPU probes' sizes, P1 and P2 at 512 and 8192 chains) with its launch
-     counts; on that run's card tensors every probe against its plain
-     version at 256 steps, and at its full size each probe's default and
-     P1's v31/v32 (whose int16 counts wrap past 32,767), at 0 tolerance;
+     counts; P1's and P3's launch (threads and dynamic shared memory per
+     block: one chain a thread, blocks of 64), and P3's levels 1-5 as
+     shares of K1's time on the same bytes (the split of K1's chain; the
+     median and range of 5 interleaved rounds); on
+     that run's card tensors every probe against its plain version at 256
+     steps, and at its full size each probe's default and P1's v31/v32
+     (whose int16 counts wrap past 32,767), at 0 tolerance;
   9. the measurement harnesses as a user runs them, each a subprocess
      whose non-zero exit fails the smoke: the benchmark's random_64m cell
      at full size and its enwik8_proxy_100m cell at 16 MiB, each with a
@@ -83,7 +90,10 @@ plain_ms and bound_ms are batch 0's and launches phase 4's; for P1-P4 ms
 is the default's (P1 v0_3pass_256 and P2 1x(1,512) at 512 chains, P3
 level 5, P4 k_onehot), plain_ms and bound_ms its full size's, launches
 phase 8's.  bound_ms is the larger of the bytes over 3.35 TB/s and the
-operations over 33.5e12 32-bit operations a second (``bound``).  The
+operations over the card's rate (``bound``): for K1-K3, P2 and P4 the
+plain version's operations over 33.5e12 a second; for P1 and P3, whose
+kernels run the model as QuadModel's tree, the tree's operations over
+the 32-bit integer rate, 16.75e12 a second.  The
 last line is {"ok": true, "device": {...}}.  Times are printed beside
 the card's name and power limit; the times of phases 6 and 7 show
 processes or shards sharing the cards, not a scaling figure.
@@ -141,17 +151,43 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
 # The H100 SXM's published peaks (NVIDIA's data sheet): device
 # memory 3.35 TB/s; 67 TFLOP/s float32 outside the tensor cores, which
 # counts a fused multiply-add as two, so one 32-bit operation per lane per
-# clock is 33.5e12 operations a second.  The kernels' operations are
-# 32-bit integer ones.
+# clock is 33.5e12 operations a second.  An SM has 64 INT32 lanes against
+# 128 FP32 ones (NVIDIA's H100 architecture paper), so 32-bit integer
+# operations issue at half that rate, 16.75e12 a second.  The kernels'
+# operations are 32-bit integer ones; K1-K3, P2 and P4 still count theirs
+# at the float32 rate (ROADMAP Queue 2), P1 and P3 at the integer rate.
 HBM_BYTES_PER_S = 3.35e12
 OPS_PER_S = 67e12 / 2
+INT32_OPS_PER_S = OPS_PER_S / 2
+
+# Operations of one step of QuadModel (csrc/packet_model.cuh) as its
+# source does them, one per arithmetic result, select, load or store.
+# prefix(s): the 4 base-4 digits of s (4), the 2 shared nodes' addresses
+# (4), their 2 16-byte loads, 2 bit tests a digit (8), 24 selects (the
+# root's S by j0: 3; level 1's S1, S2, S3 of node j0: 9, then one of them
+# by j1: 3; the level-2 node's by j2: 3; the leaf's by j3, for low and
+# for high: 6) and 4 adds: 46.  bump(s): the root's 3 compares and 3 adds
+# (6), level 1's 4 nodes each a subtract, 3 compares and 3 adds (28), and
+# the 2 shared nodes each loaded, 3 compares and 4 adds, stored (18),
+# their addresses and digits shared with prefix: 52.
+TREE_PREFIX_OPS = 46
+TREE_BUMP_OPS = 52
+# P3's coder arithmetic a symbol (csrc/profile_encode.cu, Probe::step):
+# the reciprocal's load (1); narrow_by: span, cum, 3 products, 2 div_by
+# of 6 (multiply-high, multiply, subtract, compare, select, add) and the
+# bounds' adds and masks (22); renorm_s (19); m and the settled bits (3);
+# settle's one-put path: the run length, its test, the pattern and the
+# put into the 64-bit accumulator with its predicated store (26); the
+# pending run's update (2): 73.
+P3_CODER_OPS = 73
 
 
-def bound(nbytes: int, ops: int) -> tuple[float, str]:
+def bound(nbytes: int, ops: int, rate: float = OPS_PER_S
+          ) -> tuple[float, str]:
     """(least ms for the work, "bytes" or "operations"): the larger of the
-    bytes over the memory rate and the operations over the 32-bit rate."""
+    bytes over the memory rate and the operations over ``rate``."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / OPS_PER_S * 1e3
+    t_ops = ops / rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -265,7 +301,54 @@ def phase1():
     for stem in ("encode", "decode"):
         for line in ptxas_usage(_kernels.BUILD_LOGS[stem]):
             print(f"[1 build] ptxas {stem}.cu {line}", flush=True)
+    # P1's default variant and P3's whole step (mangled template names).
+    for stem, kernel in (("probe_model", "model_kernelILi0EE"),
+                         ("profile_encode", "profile_kernelILi5EE")):
+        lines = [line for line in ptxas_usage(_kernels.BUILD_LOGS[stem])
+                 if kernel in line]
+        if not lines:
+            raise AssertionError(f"no ptxas report of {kernel} in {stem}.cu")
+        for line in lines:
+            print(f"[1 build] ptxas {stem}.cu {line}", flush=True)
+    # v8 sums all 256 rows of its column every step: its chunk loop (4
+    # steps a word) must hold 4 x 256 shared-memory loads, the step past
+    # the last chunk 256 more.
+    lds = sass_opcodes("probe_model", "model_kernelILi8EE").get("LDS", 0)
+    print(f"[1 build] SASS probe_model.cu v8_raw_sum_256: {lds} "
+          f"shared-memory loads (LDS)", flush=True)
+    if lds < 5 * 256:
+        raise AssertionError(f"v8_raw_sum_256 has {lds} LDS, under 5 x 256: "
+                             f"its table sum was hoisted out of the steps")
     return seconds
+
+
+def sass_opcodes(stem: str, kernel: str) -> dict[str, int]:
+    """The count of each SASS opcode (no modifiers) in the kernel whose
+    mangled name holds ``kernel``, in the library built from
+    ``csrc/<stem>.cu`` (cuobjdump -sass)."""
+    from gpuar_tpu_torch.ops import _kernels
+
+    tool = shutil.which("cuobjdump") or str(
+        Path(os.environ.get("CUDA_HOME") or "/usr/local/cuda")
+        / "bin" / "cuobjdump")
+    lib = _kernels.library_path(next(p for p in _kernels.sources()
+                                     if p.stem == stem))
+    dump = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    counts: dict[str, int] = {}
+    inside = False
+    for line in dump.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            inside = kernel in m.group(1)
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
+                     r"([A-Z][A-Z0-9_]*)", line)
+        if inside and m:
+            counts[m.group(1)] = counts.get(m.group(1), 0) + 1
+    if not counts:
+        raise AssertionError(f"no SASS of {kernel} in {lib.name}")
+    return counts
 
 
 def ptxas_usage(log: str) -> list[str]:
@@ -740,14 +823,9 @@ def codec_shape() -> tuple[int, int]:
     """(threads per block, shared memory bytes per block) of the codec
     kernels' launch: K1, K2 and K3 all launch PacketModel's blocks, which
     gpuar_decode_shape reports."""
-    import ctypes
-
     from gpuar_tpu_torch.ops import _kernels
 
-    vals = [ctypes.c_int() for _ in range(2)]
-    _kernels.check(_kernels.function("gpuar_decode_shape")(
-        *(ctypes.byref(v) for v in vals)), "decode shape")
-    return vals[0].value, vals[1].value
+    return _kernels.launch_shape("gpuar_decode_shape")
 
 
 def sweep(card, d, s, args) -> None:
@@ -895,6 +973,72 @@ PROBE_ROUTES = {
 PARITY_STEPS = 256   # steps of the every-variant parity check
 
 
+def probe_shapes(card) -> None:
+    """P1's and P3's launch, as their C entry points report it: one chain
+    a thread in blocks of 64, and each variant's dynamic shared memory
+    (the tree's nodes, a column of the table, or none)."""
+    from gpuar_tpu_torch.ops import _kernels
+    from gpuar_tpu_torch.probes import probe_model
+
+    by_bytes: dict[int, list[str]] = {}
+    threads = set()
+    for i, name in enumerate(probe_model.VARIANTS):
+        t, b = _kernels.launch_shape("gpuar_probe_model_shape", i)
+        threads.add(t)
+        by_bytes.setdefault(b, []).append(name.split("_")[0])
+    t3, b3 = _kernels.launch_shape("gpuar_profile_encode_shape")
+    if threads != {64} or t3 != 64:
+        raise AssertionError(f"P1 / P3 launch {threads} / {t3} threads a "
+                             f"block, not one chain a thread in blocks of 64")
+    shared = "; ".join(f"{b} B {', '.join(v)}"
+                       for b, v in sorted(by_bytes.items(), reverse=True))
+    print(f"[{card}] launch: P1 {threads.pop()} threads a block, one chain "
+          f"a thread, "
+          f"dynamic shared memory a block {shared}; P3 {t3} threads a "
+          f"block, one packet a thread, {b3} B", flush=True)
+
+
+P3_ROUNDS = 5   # interleaved rounds of P3's levels and K1 (p3_split)
+
+
+def p3_split(card, results) -> None:
+    """P3's levels 1-5 as shares of K1's time on the same packets: where
+    K1's chain goes (each level adds one phase of K1's step).  The entry
+    point's reading, then P3_ROUNDS rounds that each time every level and
+    K1 again: each share's median and range over the rounds."""
+    from gpuar_tpu_torch import probes
+    from gpuar_tpu_torch.ops import encode
+    from gpuar_tpu_torch.probes import profile_encode
+
+    ms = {r["name"]: r["ms"] for r in results if r["probe"] == "P3"}
+    k1 = ms["K1"]
+    levels = [ms[f"L{lv}"] for lv in range(1, 6)]
+    steps = [levels[0]] + [b - a for a, b in zip(levels, levels[1:])]
+    names = ("model", "+ arithmetic", "+ appends", "+ stores",
+             "+ fill words")
+    print(f"[{card}] P3 levels as shares of K1 ({k1:.4f} ms) on the same "
+          f"packets: " + ", ".join(
+              f"L{i + 1} {lv / k1:.2%}" for i, lv in enumerate(levels))
+          + "; by phase: " + ", ".join(
+              f"{n} {d / k1:+.2%}" for n, d in zip(names, steps)),
+          flush=True)
+    r = next(r for r in results if r["probe"] == "P3" and r["name"] == "L1")
+    words, sizes = r["words"], r["sizes"]
+    data = words.T.contiguous().view(torch.uint8)
+    shares = [[] for _ in levels]
+    for _ in range(P3_ROUNDS):
+        got = [probes.time_ms(lambda lv=lv: profile_encode.profile(
+            words, sizes, lv, profile_encode.STEPS)) for lv in range(1, 6)]
+        k1 = probes.time_ms(lambda: encode.encode_batch(data, sizes))
+        for i, t in enumerate(got):
+            shares[i].append(t / k1)
+    print(f"[{card}] P3 levels as shares of K1 over {P3_ROUNDS} rounds, "
+          f"median (min-max): " + ", ".join(
+              f"L{i + 1} {float(np.median(v)):.2%} "
+              f"({min(v):.2%}-{max(v):.2%})" for i, v in enumerate(shares)),
+          flush=True)
+
+
 def phase8(card):
     """The probe entry point as a user runs it (``python -m
     gpuar_tpu_torch.probes``: P1 and P2 at 512 and 8192 chains, P3 levels
@@ -921,6 +1065,8 @@ def phase8(card):
         raise AssertionError(f"a probe kernel never launched: {launches}")
     say("8 probes", f"python -m gpuar_tpu_torch.probes: {len(results)} "
         f"timings; launches {launches}", t0)
+    probe_shapes(card)
+    p3_split(card, results)
 
     t0 = time.perf_counter()
     errs = dict.fromkeys(PROBE_ROUTES, 0)
@@ -990,14 +1136,19 @@ def phase8(card):
     plain_ms, want = ms_of(lambda: probe_model.model_plain(
         r["words"], r["name"], probe_model.STEPS, probe_model.REPEAT))
     hold("probe_model", f"P1 {r['name']} [{tile}] full", r["out"], want)
-    # Per step: the update's 255 - s adds, two reads, two adds to chk, the
-    # symbol's shift and mask; each input word read once.
+    # Per step of the tree: prefix, row 256's compare and select, bump,
+    # two adds to chk, the symbol's shift and mask; each input word read
+    # once, chk written once.  flat: the flat table's count (the update's
+    # 255 - s adds, two reads, the adds, the shift and mask) at the
+    # float32 rate, the bound before the tree.
     syms = r["words"].view(torch.uint8)
     nsym = syms.numel()
-    ops = probe_model.REPEAT * (255 * nsym - int(syms.sum(dtype=torch.int64))
-                                + 6 * nsym)
-    rows["probe_model"] = (r, plain_ms, bound(r["words"].nbytes + 4 * tile,
-                                              ops))
+    nbytes = r["words"].nbytes + 4 * tile
+    ops = probe_model.REPEAT * nsym * (TREE_PREFIX_OPS + TREE_BUMP_OPS + 6)
+    flat = bound(nbytes, probe_model.REPEAT * (
+        255 * nsym - int(syms.sum(dtype=torch.int64)) + 6 * nsym))
+    rows["probe_model"] = (r, plain_ms, bound(nbytes, ops, INT32_OPS_PER_S),
+                           flat)
     # A count of row 255 passes 32,767 after about 32,500 steps, so only
     # the full run (65,536 steps a chain) takes the int16 counts of v31
     # and v32 through the wrap (v30 never updates its counts); v32 is v0's
@@ -1021,21 +1172,25 @@ def phase8(card):
     # taken and never read, so only the output moves.
     rows["probe_carry"] = (r, plain_ms, bound(4 * tile,
                                               3 * tile * iters * ncarry
-                                              * unroll))
+                                              * unroll), None)
 
     r = find("P3", f"L{profile_encode.DEFAULT_LEVEL}", profile_encode.B)
     plain_ms, want = ms_of(lambda: profile_encode.profile_plain(
         r["words"], r["sizes"], profile_encode.DEFAULT_LEVEL,
         profile_encode.STEPS))
     hold("profile_encode", f"P3 {r['name']} full", r["out"], want)
-    # Every packet is full: per symbol the update (255 - s adds) and K1's
-    # 16 operations of coder arithmetic; inputs read once, out and len
-    # written once.
+    # Every packet is full: per symbol the symbol's shift and mask, the
+    # tree's prefix and bump and the coder's arithmetic; inputs read once,
+    # out and len written once.  flat: the update's 255 - s adds and 16 of
+    # coder arithmetic at the float32 rate, the bound before the tree.
     syms = r["words"].view(torch.uint8)
     nsym = syms.numel()
-    ops = 255 * nsym - int(syms.sum(dtype=torch.int64)) + 16 * nsym
+    ops = nsym * (2 + TREE_PREFIX_OPS + TREE_BUMP_OPS + P3_CODER_OPS)
     nbytes = r["words"].nbytes + 2 * r["sizes"].nbytes + r["out"][0].nbytes
-    rows["profile_encode"] = (r, plain_ms, bound(nbytes, ops))
+    flat = bound(nbytes, 255 * nsym - int(syms.sum(dtype=torch.int64))
+                 + 16 * nsym)
+    rows["profile_encode"] = (r, plain_ms, bound(nbytes, ops,
+                                                 INT32_OPS_PER_S), flat)
 
     r = find("P4", probe_layouts.DEFAULT, probe_layouts.B)
     n, steps = probe_layouts.B, probe_layouts.STEPS
@@ -1046,13 +1201,16 @@ def phase8(card):
     # adds, one read, an add and a mask; only the sums are written.
     s = (torch.arange(n)[:, None] * 7 + torch.arange(steps)[None, :]) & 0xFF
     ops = int((255 - s).sum()) + 3 * n * steps
-    rows["probe_layouts"] = (r, plain_ms, bound(4 * n, ops))
+    rows["probe_layouts"] = (r, plain_ms, bound(4 * n, ops), None)
 
-    for key, (r, plain_ms, (bound_ms, by)) in rows.items():
+    for key, (r, plain_ms, (bound_ms, by), flat) in rows.items():
+        was = "" if flat is None else (
+            f", integer rate; flat-table count at the float32 rate "
+            f"{flat[0]:.6f} ms")
         print(f"[{card}] {PROBE_ROUTES[key][0]} {r['name']} "
               f"[{r['width']}] full size: kernel {r['ms']:.4f} ms, plain "
               f"version {plain_ms:.4f} ms, bound {bound_ms:.6f} ms "
-              f"({by}); equal at 0", flush=True)
+              f"({by}{was}); equal at 0", flush=True)
     say("8 full size", "each probe's default, v31 and v32 equal their "
         "plain versions", t0)
     return {key: {"name": PROBE_ROUTES[key][0], "route": "cuda",
@@ -1061,7 +1219,7 @@ def phase8(card):
                   "launches": launches[key], "max_abs_err": errs[key],
                   "ms": r["ms"], "plain_ms": plain_ms, "bound_ms": bound_ms,
                   "bound_by": by, "library_ms": None}
-            for key, (r, plain_ms, (bound_ms, by)) in rows.items()}
+            for key, (r, plain_ms, (bound_ms, by), _) in rows.items()}
 
 
 # Phase 9: (name, module and arguments) of each harness run.

@@ -2,7 +2,8 @@
 // code one packet per thread: the model of one packet, held by its thread
 // in registers and shared memory, and the coder's divisions by cum and
 // renormalisation in few dependent steps (narrow_by, renorm_s, equal to
-// coder.cuh's narrow and renorm).
+// the plain coder's narrowing and renormalisation,
+// ops/torch_codec.py::_apply_symbol_range and _renorm).
 //
 // The model is the coder's cumulative table C[0..256]: C[0] = 0 and C[i]
 // is the sum of the counts of the symbols below i.  Every count starts at
@@ -65,7 +66,9 @@ __device__ __forceinline__ uint32_t div_by(uint32_t x, uint32_t d,
   return x - q * d >= d ? q + 1 : q;
 }
 
-// narrow() of coder.cuh with its two divisions by cum taken by div_by.
+// The coder's narrowing of [lo, hi] to [low, high) of cum
+// (applySymbolRange: the new upper bound uses the old lower one; the
+// products stay below 2^31), its two divisions by cum taken by div_by.
 __device__ __forceinline__ void narrow_by(uint32_t& lo, uint32_t& hi,
                                           uint32_t span, uint32_t low,
                                           uint32_t high, uint32_t cum,
@@ -74,10 +77,11 @@ __device__ __forceinline__ void narrow_by(uint32_t& lo, uint32_t& hi,
   lo = (lo + div_by(low * span, cum, inv)) & kU16;
 }
 
-// renorm() of coder.cuh in fewer dependent steps, equal to it for every
-// (lo, hi) of 16 bits: its straddle count k is the run of ones that
-// (lo & ~hi) starts right after the m settled bits, and both bounds then
-// shift by s = m + k at once.  -> s and k.
+// The closed-form renormalisation (ops/torch_codec.py::_renorm: m
+// settled bits, then k straddle removals) in fewer dependent steps, equal
+// to it for every (lo, hi) of 16 bits: its straddle count k is the run of
+// ones that (lo & ~hi) starts right after the m settled bits, and both
+// bounds then shift by s = m + k at once.  -> s and k.
 __device__ __forceinline__ void renorm_s(uint32_t& lo, uint32_t& hi,
                                          uint32_t& s, uint32_t& k) {
   const uint32_t m = __clz(lo ^ hi) - 16;

@@ -54,6 +54,9 @@ SIGNATURES = {
     #                   table, stream)
     "gpuar_probe_model": ("probe_model", [_VP, _I32, _I32, _I32, _I32, _I32,
                                           _VP, _VP, _VP]),
+    # gpuar_probe_model_shape(variant, *threads, *smem_bytes): a variant's
+    # threads and dynamic shared memory bytes per block
+    "gpuar_probe_model_shape": ("probe_model", [_I32, _VP, _VP]),
     # gpuar_probe_carry(tile, iters, ncarry, packed, unroll, out, stream)
     "gpuar_probe_carry": ("probe_model", [_I32, _I32, _I32, _I32, _I32, _VP,
                                           _VP]),
@@ -61,6 +64,8 @@ SIGNATURES = {
     #                      len, stream)
     "gpuar_profile_encode": ("profile_encode", [_VP, _VP, _I32, _I32, _I32,
                                                 _VP, _I32, _VP, _VP]),
+    # gpuar_profile_encode_shape(*threads, *smem_bytes)
+    "gpuar_profile_encode_shape": ("profile_encode", [_VP, _VP]),
     # gpuar_probe_scalar(seed, n, steps, probe, out, stream)
     "gpuar_probe_scalar": ("probe_layouts", [_VP, _I32, _I32, _I32, _VP,
                                              _VP]),
@@ -187,6 +192,14 @@ def function(name: str):
     stem = SIGNATURES[name][0]
     lib = _LIBS.get(stem) or load([stem])[stem]
     return getattr(lib, name)
+
+
+def launch_shape(entry: str, *args) -> tuple[int, int]:
+    """(threads, dynamic shared memory bytes) per block of a kernel's
+    launch, as its shape entry point ``entry`` reports them for ``args``."""
+    vals = [ctypes.c_int() for _ in range(2)]
+    check(function(entry)(*args, *(ctypes.byref(v) for v in vals)), entry)
+    return vals[0].value, vals[1].value
 
 
 def check(code: int, what: str) -> None:

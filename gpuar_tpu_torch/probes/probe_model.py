@@ -6,8 +6,10 @@ of ``make`` (its ``pallas_call`` in ``run``), P2 the kernel of
 its column of the input words and updates a 256-row table of counts (128
 rows of packed 16-bit pairs in the paired forms, int16 counts in the i16
 forms); the output is a checksum ``chk`` per chain, a deterministic
-function of the input.  On the H100 each chain is one warp
-(``csrc/probe_model.cu``).
+function of the input.  On the H100 (``csrc/probe_model.cu``) a P1 chain
+is one thread, in blocks of 64, on the codec kernels' model: the updated
+tables are the 4-ary prefix tree of ``csrc/packet_model.cuh``, the
+read-only ones a column of shared memory; a P2 chain is one warp.
 
 ``model`` / ``carry`` take a CUDA tensor to the kernel and a CPU tensor to
 ``model_plain`` / ``carry_plain``, which repeat the probe's arithmetic

@@ -2,12 +2,13 @@
 
 The counterpart of ``benchmarks/profile_encode.py`` (``make_kernel``, its
 ``pallas_call`` in ``call``).  Level L runs phases 1..L of an encoder step
-on each packet (a lane of the TPU's tile; a warp of
-``csrc/profile_encode.cu`` on the H100):
+on each packet (a lane of the TPU's tile; on the H100 a thread of
+``csrc/profile_encode.cu``, which is K1's step cut off after each phase,
+one packet a thread in blocks of 64 on K1's model):
 
-  1. the model: two table reads and the suffix update;
+  1. the model: two table reads and the update;
   2. + the range narrowing and renormalisation;
-  3. + the bit appends into a 32-bit accumulator;
+  3. + the bit appends into the accumulator;
   4. + the stores of each completed word;
   5. + the stores of an underflow run's whole fill words.
 

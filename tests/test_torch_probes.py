@@ -12,8 +12,10 @@ get [STEPS, TILE].  P3 is compared on ``len`` at every level: the TPU's
 ring and dump have no counterpart in the port, so the stored words are
 compared only between the kernel and its plain version, on the card.
 
-The GPU-marked tests hold each kernel to its plain version at 0 on the
-card and skip here.
+P1's and P3's kernels run one chain a thread on the codec kernels' model;
+numpy mirrors of their arithmetic (QuadMirror and the coder's steps) are
+held to the plain versions here.  The GPU-marked tests hold each kernel
+to its plain version at 0 on the card and skip here.
 """
 
 import functools
@@ -262,6 +264,354 @@ def test_probe_entry_point_refuses_without_a_card(monkeypatch):
         entry.main(["nonsense"])
 
 
+# --- The per-thread kernels' arithmetic in numpy ---------------------------
+#
+# csrc/probe_model.cu and csrc/profile_encode.cu run one chain a thread on
+# the codec kernels' model (QuadModel).  These mirrors follow their
+# arithmetic for every chain at once, with test_torch_decode's QuadMirror
+# and renorm_s and packet_model.cuh's reciprocal table, and are held to
+# the plain versions at 0.  ``mutant`` breaks one piece, to show that the
+# comparison catches it: "row256" reads the row past the table wrongly
+# (P1: C[256] instead of 0; P3: 0 instead of C[256] = 256 + t), "m" takes
+# m = s for m = s - k (P3).
+
+def wrap32(x):
+    """x as int32, wrapped (two's complement)."""
+    return ((np.asarray(x, np.int64) + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)
+
+
+def quad_cum(tree, s):
+    """C[s] for s [B] in [0, 256] of a QuadMirror: C[256] is C[255] plus
+    the count of symbol 255."""
+    low = tree.prefix(np.minimum(s, 255)[:, None])[:, 0]
+    return low + np.where(s == 256, tree.l3[:, 63, 3] - tree.l3[:, 63, 2], 0)
+
+
+def p1_symbols(words, variant, steps):
+    """The symbols each step of a P1 variant takes, [steps, tile] (v11,
+    v16 and v17: [steps, 4, tile], a word's four)."""
+    w = words.astype(np.int64) & 0xFFFFFFFF
+    if variant in probe_model.WORD_PER_STEP:
+        return np.stack([(w[:steps] >> (8 * j)) & 0xFF for j in range(4)], 1)
+    t = np.arange(steps)
+    return (w[t >> 2] >> (8 * (t & 3))[:, None]) & 0xFF
+
+
+# The variants whose table is updated (the others keep the initial one).
+UPDATED = ("v0_3pass_256", "v1_low_only", "v2_update_only",
+           "v16_unroll4_3pass", "v17_unroll4_stale", "v31_i16_3pass",
+           "v32_i16_mixed")
+
+
+def table_dtype(variant):
+    """The numpy dtype of a P1 variant's table."""
+    return np.int16 if probe_model.table_shape(variant)[1] == torch.int16 \
+        else np.int32
+
+
+def p1_mirror(words, variant, steps, repeat, mutant=None):
+    """csrc/probe_model.cu's model_kernel for every chain of words [rows,
+    tile] -> (chk int32 [tile], the final table [tile, rows])."""
+    from test_torch_decode import QuadMirror
+
+    rows, dtype = probe_model.table_shape(variant)
+    i16 = dtype == torch.int16
+    tile = words.shape[1]
+    tree, every = QuadMirror(tile), np.ones(tile, bool)
+    column = np.append(np.arange(rows), 0)   # read-only: iota, then 0
+    chk = np.zeros(tile, np.int64)
+
+    def as_row(c):   # an int16 count is its low 16 bits, sign-extended
+        return ((c + 0x8000) & 0xFFFF) - 0x8000 if i16 else c
+
+    def tree_rows(s):   # rows s and s + 1: C[s], C[s + 1], row 256 0
+        high = quad_cum(tree, s + 1)
+        if mutant != "row256":
+            high = np.where(s == 255, 0, high)
+        return as_row(quad_cum(tree, s)), as_row(high)
+
+    def paired(m):   # paired row m, row 128 0
+        v = quad_cum(tree, np.minimum(2 * m, 255)) - m \
+            + ((quad_cum(tree, np.minimum(2 * m + 1, 256)) - 2 * m - 1) << 16)
+        return np.where(m < 128, wrap32(v), 0)
+
+    syms = p1_symbols(words, variant, steps)
+    for _ in range(repeat):
+        for t in range(steps):
+            sym = syms[t]
+            if variant in ("v0_3pass_256", "v31_i16_3pass", "v32_i16_mixed",
+                           "v1_low_only"):
+                low, high = tree_rows(sym)
+                tree.bump(sym, every)
+                chk += low + (high if variant != "v1_low_only" else 0)
+            elif variant == "v2_update_only":
+                tree.bump(sym, every)
+                chk += sym
+            elif variant == "v4_paired":
+                pk0, pk1 = paired(sym >> 1), paired((sym >> 1) + 1)
+                even = (sym & 1) == 0
+                chk += np.where(even, pk0 & 0xFFFF, pk0 >> 16)
+                chk += np.where(even, pk0 >> 16, pk1 & 0xFFFF)
+                tree.bump(sym, every)
+            elif variant == "v16_unroll4_3pass":
+                for s in sym:
+                    low, high = tree_rows(s)
+                    tree.bump(s, every)
+                    chk += low + high
+            elif variant == "v17_unroll4_stale":
+                for s in sym:
+                    chk += sum(tree_rows(s))
+                for s in sym:
+                    tree.bump(s, every)
+            elif variant == "v3_lowhigh_only":
+                chk += column[sym] + column[sym + 1]
+            elif variant == "v5_paired_1hot":
+                chk += column[sym >> 1] + column[(sym >> 1) + 1]
+            elif variant in ("v6_single_reduce_256", "v30_i16_reduce"):
+                chk += column[sym]
+            elif variant == "v7_single_reduce_128":
+                chk += column[sym >> 1]
+            elif variant == "v8_raw_sum_256":
+                chk += column[:rows].sum() + sym
+            elif variant == "v10_noload":
+                chk += t & 255
+            elif variant == "v11_unroll4":
+                chk += sym.sum(0)
+            elif variant in ("v12_20adds_row", "v13_20adds_8x128"):
+                s2 = sym.copy()
+                for _ in range(20):
+                    s2 = s2 + (s2 >> 1)
+                chk += s2
+            elif variant == "v14_clz_div":
+                x, d = sym * 12345 + 7, sym + 3
+                inv = np.float32(1.0) / d.astype(np.float32)
+                q0 = (x.astype(np.float32) * inv).astype(np.int64)
+                r = x - q0 * d
+                q = q0 + (r >= d) - (r < 0)
+                chk += q + 32 - np.floor(np.log2(q | 1)).astype(np.int64) - 1
+            elif variant == "v15_varshift":
+                m = sym & 15
+                chk += ((sym << m) & 0xFFFF) + (((1 << m) - 1) & 0xFFFF)
+            else:
+                assert variant == "v9_noop", variant
+                chk += sym
+            chk = wrap32(chk)
+    every_row = np.broadcast_to(np.arange(rows), (tile, rows))
+    if variant == "v4_paired":
+        table = np.stack([paired(every_row[:, m]) for m in range(rows)], 1)
+    elif variant in UPDATED:
+        table = as_row(tree.prefix(every_row))
+    else:
+        table = every_row
+    return chk.astype(np.int32), table.astype(table_dtype(variant))
+
+
+def p1_counted_table(words, variant, steps, repeat):
+    """The final table from a count of the symbols alone: row s is s plus
+    the symbols below s (paired row m: m plus those below 2m, and those
+    up to 2m in the high half); the variants that never update keep the
+    initial table."""
+    rows, dtype = probe_model.table_shape(variant)
+    syms = p1_symbols(words, variant, steps).reshape(-1, words.shape[1])
+    hist = np.stack([np.bincount(c, minlength=256) for c in syms.T]) * repeat
+    below = np.cumsum(hist, 1) - hist   # symbols below s, [tile, 256]
+    m = np.arange(rows)
+    if variant == "v4_paired":
+        table = wrap32(m + below[:, 2 * m] + ((below[:, 2 * m + 1]) << 16))
+    elif variant in UPDATED:
+        table = m + below
+        if dtype == torch.int16:
+            table = ((table + 0x8000) & 0xFFFF) - 0x8000
+    else:
+        table = np.broadcast_to(m, (words.shape[1], rows))
+    return table.astype(table_dtype(variant))
+
+
+@pytest.mark.parametrize("variant", probe_model.VARIANTS)
+def test_p1_mirror_equals_plain(variant):
+    """Every variant of the per-thread P1 equals the plain version at 0
+    (5 chains, 256 steps, 2 repeats), and its final table equals the count
+    of the symbols."""
+    steps, repeat = 256, 2
+    words = probe_model.make_words(probe_model.input_rows(variant, steps), 5,
+                                   seed=21)
+    chk, table = p1_mirror(words, variant, steps, repeat)
+    want = probe_model.model_plain(torch.from_numpy(words), variant, steps,
+                                   repeat)
+    np.testing.assert_array_equal(chk, want.numpy())
+    np.testing.assert_array_equal(
+        table, p1_counted_table(words, variant, steps, repeat))
+
+
+@pytest.mark.parametrize("variant", ("v31_i16_3pass", "v32_i16_mixed"))
+def test_p1_mirror_i16_wrap_equals_plain(variant):
+    """The int16 rows read through the wrap: row 255's count passes 32,767
+    on every chain."""
+    steps, words = i16_wrap_words(3)
+    chk, table = p1_mirror(words, variant, steps, 1)
+    want = probe_model.model_plain(torch.from_numpy(words), variant, steps, 1)
+    np.testing.assert_array_equal(chk, want.numpy())
+    assert (table[:, 255] < 0).all()
+    np.testing.assert_array_equal(
+        table, p1_counted_table(words, variant, steps, 1))
+
+
+# inv(cum) = floor((2^32 - 1) / cum) for cum = 256 .. 8704.
+INV = np.uint64(0xFFFFFFFF) // np.arange(256, 8705, dtype=np.uint64)
+
+
+def p3_mirror(words, sizes, level, steps, mutant=None):
+    """csrc/profile_encode.cu's profile_kernel for every packet of words
+    [steps/4, B] and sizes [B] -> (out int32 [B, W], len int32 [B]): the
+    model as QuadMirror, narrow_by with the reciprocal, renorm_s, K1's
+    64-bit accumulator with one put for bits that fit in 32 and the four
+    appends as puts (the run's whole fill words skipped) for longer
+    ones, predicated word stores."""
+    from test_torch_decode import QuadMirror, renorm_s
+
+    n = len(sizes)
+    cap = profile_encode.out_geometry(steps)[1]
+    out = np.zeros((n, cap), np.int64)
+    size = np.clip(sizes, 0, steps)
+    w32 = words.astype(np.int64) & 0xFFFFFFFF
+    model, rows = QuadMirror(n), np.arange(n)
+    lo, hi = np.zeros(n, np.int64), np.full(n, 0xFFFF, np.int64)
+    under, chk = np.zeros(n, np.int64), np.zeros(n, np.int64)
+    acc, nb = np.zeros(n, np.uint64), np.zeros(n, np.int64)
+    wcur = np.ones(n, np.int64)
+
+    def put(v, k, on):   # BitWriter::put(v, k <= 32) where on
+        nonlocal acc, nb, chk, wcur
+        k = np.where(on, k, 0)
+        v = np.asarray(v).astype(np.uint64)
+        acc = np.where(on, (acc << k.astype(np.uint64)) | v, acc)
+        nb = nb + k
+        full = nb >= 32
+        nb = np.where(full, nb - 32, nb)
+        w = ((acc >> nb.astype(np.uint64)) & np.uint64(0xFFFFFFFF)
+             ).astype(np.int64)
+        if level == 3:
+            chk = chk + np.where(full, w + 1, 0)
+        if level >= 4:
+            r = np.nonzero(full & (wcur < cap))[0]
+            out[r, wcur[r]] = w[r]
+        wcur = wcur + full
+
+    def mask(b):
+        return (1 << b) - 1
+
+    for t in range(steps):
+        on = t < size
+        sym = np.where(on, (w32[t >> 2] >> (8 * (t & 3))) & 0xFF, 0)
+        low, high = quad_cum(model, sym), quad_cum(model, sym + 1)
+        if mutant == "row256":
+            high = np.where(sym == 255, 0, high)
+        if level == 1:
+            model.bump(sym, on)
+            chk += np.where(on, low + high, 0)
+            continue
+        cum, inv = np.uint64(256 + t), INV[t]
+        span = hi - lo + 1
+
+        def div_by(x):
+            q = (x.astype(np.uint64) * inv) >> np.uint64(32)
+            return (q + (x.astype(np.uint64) - q * cum >= cum)).astype(
+                np.int64)
+
+        hi2 = (lo + div_by(high * span) - 1) & 0xFFFF
+        lo2 = (lo + div_by(low * span)) & 0xFFFF
+        model.bump(sym, on)
+        settled = hi2
+        lo2, hi2, s, k = renorm_s(lo2, hi2)
+        m = s if mutant == "m" else s - k
+        top = settled >> (16 - m)
+        sh = np.maximum(m - 1, 0)
+        if level == 2:
+            chk += np.where(on, (top >> sh) + (top & mask(sh))
+                            + np.where(m > 0, under, 0), 0)
+        else:
+            length = np.where(m > 0, m + under, 0)
+            fast = length <= 32
+            r = np.where(fast & (m > 0), under, 0)
+            put(top + (mask(r) << sh), length, on & fast)
+            slow = on & ~fast
+            if slow.any():
+                b0 = top >> sh
+                fill = np.where(b0 > 0, 0, 0xFFFFFFFF)
+                put(b0, 1, slow)
+                r1 = np.minimum(under, (32 - nb) & 31)
+                put(fill & mask(r1), r1, slow)
+                rest = under - r1
+                runw = np.where(slow, rest >> 5, 0)
+                if level >= 5:
+                    for p in np.nonzero(runw)[0]:
+                        out[p, wcur[p]: min(wcur[p] + runw[p], cap)] = fill[p]
+                wcur = wcur + runw
+                put(fill & mask(rest & 31), rest & 31, slow)
+                put(top & mask(sh), sh, slow)
+        under = np.where(on, np.where(m > 0, k, under + k), under)
+        lo, hi = np.where(on, lo2, lo), np.where(on, hi2, hi)
+    if level == 1:   # each inactive step adds C[1]
+        chk += (steps - size) * quad_cum(model, np.ones(n, np.int64))
+    return wrap32(out).astype(np.int32), wrap32(chk + wcur).astype(np.int32)
+
+
+def p3_phase8_inputs(steps=256, n=6, seed=23):
+    """Phase 8's inputs at ``steps``: random packets, packet 1 the
+    underflow adversary, packet 2 short and packet 3 empty."""
+    from gpuar_tpu_torch.bench.corpora import adversarial_underflow_packet
+
+    words = probe_model.make_words(steps // 4, n, seed)
+    words[:, 1] = adversarial_underflow_packet(steps).view("<i4")
+    sizes = np.full(n, steps, np.int32)
+    sizes[2], sizes[3] = steps // 3, 0
+    return words, sizes
+
+
+@pytest.mark.parametrize("level", profile_encode.LEVELS)
+def test_p3_mirror_equals_plain(level):
+    """Each level of the per-thread P3 equals the plain version at 0 on
+    phase 8's inputs: stored words and len."""
+    steps = 256
+    words, sizes = p3_phase8_inputs(steps)
+    out, length = p3_mirror(words, sizes, level, steps)
+    p_out, p_len = profile_encode.profile_plain(
+        torch.from_numpy(words), torch.from_numpy(sizes), level, steps)
+    np.testing.assert_array_equal(length, p_len.numpy())
+    np.testing.assert_array_equal(out, p_out.numpy())
+    if level == 5:   # the adversary's long runs took the four appends
+        out4, _ = p3_mirror(words, sizes, 4, steps)
+        assert (out4[1] != out[1]).any() and (out4[0] == out[0]).all()
+
+
+@pytest.mark.parametrize("probe, mutant", [("P1", "row256"), ("P3", "row256"),
+                                           ("P3", "m")])
+def test_mirrors_catch_mutants(probe, mutant):
+    """A mirror with a wrong row-256 read or a wrong m = s - k differs from
+    the plain version on the inputs the mirror tests use (m has no
+    counterpart in P1, which has no coder arithmetic)."""
+    steps = 256
+    if probe == "P1":
+        words = probe_model.make_words(steps // 4, 5, seed=21)
+        assert (words.view(np.uint8) == 255).any()
+        got, _ = p1_mirror(words, "v0_3pass_256", steps, 2, mutant)
+        want = probe_model.model_plain(torch.from_numpy(words),
+                                       "v0_3pass_256", steps, 2)
+        assert not np.array_equal(got, want.numpy())
+        return
+    words, sizes = p3_phase8_inputs(steps)
+    plain = [profile_encode.profile_plain(torch.from_numpy(words),
+                                          torch.from_numpy(sizes), level,
+                                          steps)[1].numpy()
+             for level in (1, 3)]
+    got = [p3_mirror(words, sizes, level, steps, mutant)[1]
+           for level in (1, 3)]
+    # row 256 shows from L1 on; m only where the coder runs (L2 on)
+    assert not np.array_equal(got[1], plain[1])
+    if mutant == "row256":
+        assert not np.array_equal(got[0], plain[0])
+
+
 # --- On the card: each kernel against its plain version at 0. ------------
 
 @pytest.mark.gpu
@@ -273,6 +623,22 @@ def test_p1_kernel_equals_plain(variant, cuda):
     got = probe_model.model(words, variant, steps, repeat)
     want = probe_model.model_plain(words, variant, steps, repeat)
     assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", ("v0_3pass_256", "v4_paired",
+                                     "v8_raw_sum_256", "v11_unroll4",
+                                     "v17_unroll4_stale", "v30_i16_reduce"))
+def test_p1_kernel_past_whole_chunks_equals_plain(variant, cuda):
+    """The kernel reads its words in chunks of 4: at 172 steps (43 words)
+    and, one word a step, 174, the last 3 or 2 words are read one at a
+    time."""
+    steps = 174 if variant in probe_model.WORD_PER_STEP else 172
+    repeat, tile = 3, 70
+    words = torch.from_numpy(probe_model.make_words(
+        probe_model.input_rows(variant, steps), tile, seed=9)).to(cuda)
+    assert torch.equal(probe_model.model(words, variant, steps, repeat),
+                       probe_model.model_plain(words, variant, steps, repeat))
 
 
 @pytest.mark.gpu
