@@ -12,9 +12,10 @@ exit, no result line):
      and CUDA versions;
   1. build the kernels from gpuar_tpu_torch/csrc for sm_90a, and print
      ptxas's registers, stack and spills of K1, K2 and K3, and of P1's
-     v0_3pass_256 and P3's level 5; and, from cuobjdump's SASS, the
-     shared-memory loads of P1's v8_raw_sum_256 (at least 256 a step of
-     its chunk loop, so no step's table sum was hoisted or reused);
+     v0_3pass_256, P2's 1x(1,512), P3's level 5 and P4's k_onehot; and,
+     from cuobjdump's SASS, the shared-memory loads of P1's
+     v8_raw_sum_256 (at least 256 a step of its chunk loop, so no step's
+     table sum was hoisted or reused);
   2. K1 (encode) on the card against its plain PyTorch version and the
      golden codec, on boundary sizes and content classes at 8192 B;
   3. K2 (decode) against its plain version from a compacted blob, and K3
@@ -53,14 +54,16 @@ exit, no result line):
      processes import no JAX;
   8. the probes P1-P4: ``python -m gpuar_tpu_torch.probes`` as a user runs
      it (every variant, configuration, level and primitive timed at the
-     TPU probes' sizes, P1 and P2 at 512 and 8192 chains) with its launch
-     counts; P1's and P3's launch (threads and dynamic shared memory per
-     block: one chain a thread, blocks of 64), and P3's levels 1-5 as
-     shares of K1's time on the same bytes (the split of K1's chain; the
-     median and range of 5 interleaved rounds); on
-     that run's card tensors every probe against its plain version at 256
-     steps, and at its full size each probe's default and P1's v31/v32
-     (whose int16 counts wrap past 32,767), at 0 tolerance;
+     TPU probes' sizes, P1 and P2 at 512 and 8192 chains, P4's table
+     probes at 1024 and 8192 tables) with its launch counts; the launch of
+     P1-P4's chain kernels (threads and dynamic shared memory per block:
+     one chain a thread, blocks of 64; P4's tables on PacketModel's
+     81,920 B), and P3's levels 1-5 as shares of K1's time on the same
+     bytes (the split of K1's chain; the median and range of 5
+     interleaved rounds); on that run's card tensors every probe at every
+     width against its plain version at 256 steps, and at its full size
+     each probe's default and P1's v31/v32 (whose int16 counts wrap past
+     32,767), at 0 tolerance;
   9. the measurement harnesses as a user runs them, each a subprocess
      whose non-zero exit fails the smoke: the benchmark's random_64m cell
      at full size and its enwik8_proxy_100m cell at 16 MiB, each with a
@@ -88,13 +91,13 @@ line, no phase 9).
 The second-to-last line is a JSON object of the kernels: for K1-K3 ms,
 plain_ms and bound_ms are batch 0's and launches phase 4's; for P1-P4 ms
 is the default's (P1 v0_3pass_256 and P2 1x(1,512) at 512 chains, P3
-level 5, P4 k_onehot), plain_ms and bound_ms its full size's, launches
-phase 8's.  bound_ms is the larger of the bytes over 3.35 TB/s and the
-operations over the card's rate (``bound``): for K1-K3, P2 and P4 the
-plain version's operations over 33.5e12 a second; for P1 and P3, whose
-kernels run the model as QuadModel's tree, the tree's operations over
-the 32-bit integer rate, 16.75e12 a second.  The
-last line is {"ok": true, "device": {...}}.  Times are printed beside
+level 5, P4 k_onehot at 1024 tables), plain_ms and bound_ms its full
+size's, launches phase 8's.  bound_ms is the larger of the bytes over
+3.35 TB/s and the operations over the card's rate (``bound``): each
+kernel's own operations, as its source does them (the tallies below),
+over the 32-bit integer rate, 16.75e12 a second; the bound by the plain
+version's flat-table count at the float32 rate is printed beside it.
+The last line is {"ok": true, "device": {...}}.  Times are printed beside
 the card's name and power limit; the times of phases 6 and 7 show
 processes or shards sharing the cards, not a scaling figure.
 """
@@ -154,8 +157,9 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
 # clock is 33.5e12 operations a second.  An SM has 64 INT32 lanes against
 # 128 FP32 ones (NVIDIA's H100 architecture paper), so 32-bit integer
 # operations issue at half that rate, 16.75e12 a second.  The kernels'
-# operations are 32-bit integer ones; K1-K3, P2 and P4 still count theirs
-# at the float32 rate (ROADMAP Queue 2), P1 and P3 at the integer rate.
+# operations are 32-bit integer ones, and every kernel's bound counts them
+# at the integer rate; the float32 rate remains for the flat-table bound
+# printed beside it.
 HBM_BYTES_PER_S = 3.35e12
 OPS_PER_S = 67e12 / 2
 INT32_OPS_PER_S = OPS_PER_S / 2
@@ -172,14 +176,59 @@ INT32_OPS_PER_S = OPS_PER_S / 2
 # their addresses and digits shared with prefix: 52.
 TREE_PREFIX_OPS = 46
 TREE_BUMP_OPS = 52
-# P3's coder arithmetic a symbol (csrc/profile_encode.cu, Probe::step):
-# the reciprocal's load (1); narrow_by: span, cum, 3 products, 2 div_by
-# of 6 (multiply-high, multiply, subtract, compare, select, add) and the
-# bounds' adds and masks (22); renorm_s (19); m and the settled bits (3);
-# settle's one-put path: the run length, its test, the pattern and the
-# put into the 64-bit accumulator with its predicated store (26); the
-# pending run's update (2): 73.
-P3_CODER_OPS = 73
+# The encoder's coder arithmetic a symbol (csrc/encode.cu, Coder::step,
+# and P3's level 5, csrc/profile_encode.cu, Probe::step, which runs the
+# same step): the reciprocal's load (1); narrow_by: span, cum, 3 products,
+# 2 div_by of 6 (multiply-high, multiply, subtract, compare, select, add)
+# and the bounds' adds and masks (22); renorm_s (19); m and the settled
+# bits (3); settle's one-put path: the run length, its test, the pattern
+# and the put into the 64-bit accumulator with its predicated store (26);
+# the pending run's update (2): 73.
+ENCODE_CODER_OPS = 73
+# K1 a symbol: the symbol's shift and mask, prefix, bump, the coder: 173.
+K1_SYMBOL_OPS = 2 + TREE_PREFIX_OPS + TREE_BUMP_OPS + ENCODE_CODER_OPS
+# QuadModel::search (csrc/packet_model.cuh): a level's step over S1..S3
+# is 3 products, 3 compares, rem's two selects and subtract, lo's two
+# selects and add, and the child's count of 2 adds (14); the root's step
+# (14); level 1's 3 picks of 3 selects and its step (23); the level-2
+# node's index, address and load (5) and its step (14); the leaf's index,
+# address and load (6); the leaf's 3 products and 3 compares (6), low's
+# and high's 3 selects and an add each (8) and the symbol's index (4): 80.
+SEARCH_OPS = 80
+# bump's 2 shared nodes' addresses (4) and its 2 digits (2), which decode
+# has no prefix to share with (TREE_BUMP_OPS leaves them to prefix).
+BUMP_ADDRESS_OPS = 6
+# The decoder's arithmetic a symbol (csrc/decode.cu, decode_kernel's
+# loop): the refill test (1); span and its clamp (3); num (4); narrow_by's
+# 2 products, 2 div_by of 6 and the bounds' adds and masks (19); cum's
+# increment and the next reciprocal's index, test and load (4); renorm_s
+# (19); shift_in's 64-bit shift, count, funnel shift and mask, and the
+# code's select and xor (8); the byte's __byte_perm, the store's test and
+# a quarter of the store with its address (4): 62.
+DECODE_CODER_OPS = 62
+# K3's flags a symbol: num's two range tests, their ors into the flag,
+# the inversion's compare and or, the bit cursor (8).
+DEBUG_OPS = 8
+K2_SYMBOL_OPS = SEARCH_OPS + TREE_BUMP_OPS + BUMP_ADDRESS_OPS \
+    + DECODE_CODER_OPS   # 200
+K3_SYMBOL_OPS = K2_SYMBOL_OPS + DEBUG_OPS   # 208
+# One refill of the decoder's bit reader, every 4 compressed bytes
+# (BitReader::refill and load_next): the word's 3 shifts, 3 ors and mask
+# (7), its 64-bit shift into the buffer (4), the count (1); the window's
+# last byte (2), 4 clamped addresses and byte loads (12), the bytes inside
+# (3), the mask (4), the cursor (1): 34.
+REFILL_OPS = 34
+# P2 a carry a step: c + (c >> 1) + t, a shift and two adds (3).
+CARRY_OPS = 3
+# P4 k_onehot's read (csrc/probe_layouts.cu, onehot_prefix): the 4
+# digits (4), the 2 shared nodes' addresses (4) and loads (2), 13 masks
+# (4 for j0, which level 1's reduces share, and 3 for each other digit;
+# a compare each), 24 ANDs (the root's 3, level 1's 12, 3 a level below)
+# and 20 adds (the reduces' 17, the levels' 3): 67.
+ONEHOT_PREFIX_OPS = 67
+# P4 k_onehot a step: the read, bump, and the symbol's and the sum's add
+# and mask (4): 123.
+P4_STEP_OPS = ONEHOT_PREFIX_OPS + TREE_BUMP_OPS + 4
 
 
 def bound(nbytes: int, ops: int, rate: float = OPS_PER_S
@@ -301,9 +350,12 @@ def phase1():
     for stem in ("encode", "decode"):
         for line in ptxas_usage(_kernels.BUILD_LOGS[stem]):
             print(f"[1 build] ptxas {stem}.cu {line}", flush=True)
-    # P1's default variant and P3's whole step (mangled template names).
+    # P1's and P2's defaults, P3's whole step and P4's default table probe
+    # (mangled template names).
     for stem, kernel in (("probe_model", "model_kernelILi0EE"),
-                         ("profile_encode", "profile_kernelILi5EE")):
+                         ("probe_model", "carry_kernelILi1ELb0ELi1EE"),
+                         ("profile_encode", "profile_kernelILi5EE"),
+                         ("probe_layouts", "table_kernelILi2EE")):
         lines = [line for line in ptxas_usage(_kernels.BUILD_LOGS[stem])
                  if kernel in line]
         if not lines:
@@ -893,20 +945,34 @@ def phase5(card, dev, src, errs):
             # The least time for batch 0's work (bound): K1 reads the raw
             # bytes and sizes and writes the packets and lengths; K2 reads
             # the blob, offsets and sizes and writes the bytes (K3 also
-            # its flags).  The operations are the plain version's, the
-            # function's own and not one design's: per symbol the model's
-            # update (256 - s adds) and the coder's arithmetic, counted as
-            # 16 operations (two reads, two multiplies, two divisions, the
-            # narrowing, the renormalisation); the decoder's search as 8
-            # more.
+            # its flags).  The operations are each kernel's own a symbol
+            # (K1_SYMBOL_OPS, K2_SYMBOL_OPS, K3_SYMBOL_OPS) and the
+            # decoder's refills, one every 4 compressed bytes, over the
+            # integer rate.  flat: the plain version's count, per symbol
+            # the model's update (256 - s adds) and 16 operations of coder
+            # arithmetic (8 more for the decoder's search), over the
+            # float32 rate, the bound before the tree.
             n = data.shape[0]
             nsym, upd = model_ops(data, sizes, 256)
+            enc_bytes = int(sizes.sum()) + 8 * n + int(ln.sum())
             dec_bytes = blob.size + offs.nbytes + rs.nbytes + n * P
-            bounds = {"encode": bound(int(sizes.sum()) + 8 * n
-                                      + int(ln.sum()), upd + 16 * nsym),
-                      "decode": bound(dec_bytes, upd + 24 * nsym),
+            refills = REFILL_OPS * (int(ln.sum()) // 4)
+            bounds = {"encode": bound(enc_bytes, K1_SYMBOL_OPS * nsym,
+                                      INT32_OPS_PER_S),
+                      "decode": bound(dec_bytes, K2_SYMBOL_OPS * nsym
+                                      + refills, INT32_OPS_PER_S),
                       "decode_debug": bound(dec_bytes + 8 * n,
-                                            upd + 24 * nsym)}
+                                            K3_SYMBOL_OPS * nsym + refills,
+                                            INT32_OPS_PER_S)}
+            flats = {"encode": bound(enc_bytes, upd + 16 * nsym),
+                     "decode": bound(dec_bytes, upd + 24 * nsym),
+                     "decode_debug": bound(dec_bytes + 8 * n,
+                                           upd + 24 * nsym)}
+            print(f"[{card}] batch 0 bounds, each kernel's operations at "
+                  f"the integer rate: " + ", ".join(
+                      f"{k} {bounds[k][0]:.6f} ms ({bounds[k][1]}; "
+                      f"flat-table count at the float32 rate "
+                      f"{flats[k][0]:.6f} ms)" for k in bounds), flush=True)
         del pk, ln, args
         e, plain = against_plain(dev, data, sizes)
         for key in e:
@@ -974,9 +1040,10 @@ PARITY_STEPS = 256   # steps of the every-variant parity check
 
 
 def probe_shapes(card) -> None:
-    """P1's and P3's launch, as their C entry points report it: one chain
-    a thread in blocks of 64, and each variant's dynamic shared memory
-    (the tree's nodes, a column of the table, or none)."""
+    """The launch of P1-P4's chain kernels, as their C entry points report
+    it: one chain a thread in blocks of 64, and each variant's dynamic
+    shared memory (the tree's nodes, a column of the table, or none); P2
+    none, P4's table probes PacketModel's (the codec kernels')."""
     from gpuar_tpu_torch.ops import _kernels
     from gpuar_tpu_torch.probes import probe_model
 
@@ -986,16 +1053,24 @@ def probe_shapes(card) -> None:
         t, b = _kernels.launch_shape("gpuar_probe_model_shape", i)
         threads.add(t)
         by_bytes.setdefault(b, []).append(name.split("_")[0])
+    t2, b2 = _kernels.launch_shape("gpuar_probe_carry_shape")
     t3, b3 = _kernels.launch_shape("gpuar_profile_encode_shape")
-    if threads != {64} or t3 != 64:
-        raise AssertionError(f"P1 / P3 launch {threads} / {t3} threads a "
-                             f"block, not one chain a thread in blocks of 64")
+    t4, b4 = _kernels.launch_shape("gpuar_probe_table_shape")
+    if threads != {64} or {t2, t3, t4} != {64}:
+        raise AssertionError(f"P1 / P2 / P3 / P4 tables launch {threads} / "
+                             f"{t2} / {t3} / {t4} threads a block, not one "
+                             f"chain a thread in blocks of 64")
+    if b4 != codec_shape()[1]:
+        raise AssertionError(f"P4's tables take {b4} B a block, not "
+                             f"PacketModel's {codec_shape()[1]}")
     shared = "; ".join(f"{b} B {', '.join(v)}"
                        for b, v in sorted(by_bytes.items(), reverse=True))
     print(f"[{card}] launch: P1 {threads.pop()} threads a block, one chain "
           f"a thread, "
-          f"dynamic shared memory a block {shared}; P3 {t3} threads a "
-          f"block, one packet a thread, {b3} B", flush=True)
+          f"dynamic shared memory a block {shared}; P2 {t2} threads a "
+          f"block, one chain a thread, {b2} B; P3 {t3} threads a "
+          f"block, one packet a thread, {b3} B; P4's tables {t4} threads a "
+          f"block, one table a thread, {b4} B", flush=True)
 
 
 P3_ROUNDS = 5   # interleaved rounds of P3's levels and K1 (p3_split)
@@ -1042,11 +1117,12 @@ def p3_split(card, results) -> None:
 def phase8(card):
     """The probe entry point as a user runs it (``python -m
     gpuar_tpu_torch.probes``: P1 and P2 at 512 and 8192 chains, P3 levels
-    1-5 and K1, P4 at the probes' sizes), with its launch counts.  Then, on
-    that run's card tensors, every P1 variant, P2 configuration, P3 level
-    and P4 probe against its plain version at PARITY_STEPS steps, and at
-    its full size each probe's default (the one the kernels line times)
-    and P1's v31/v32 at 512 chains; all at 0 tolerance.
+    1-5 and K1, P4 at the probes' sizes, its table probes at 1024 and 8192
+    tables), with its launch counts.  Then, on that run's card tensors,
+    every P1 variant, P2 configuration, P3 level and P4 probe at every
+    width against its plain version at PARITY_STEPS steps, and at its
+    full size each probe's default (the one the kernels line times) and
+    P1's v31/v32 at 512 chains; all at 0 tolerance.
     -> {key: kernels line entry}."""
     from gpuar_tpu_torch import probes
     from gpuar_tpu_torch.probes import __main__ as entry
@@ -1167,12 +1243,18 @@ def phase8(card):
     plain_ms, want = ms_of(lambda: probe_model.carry_plain(
         tile, iters, r["name"], r["out"].device))
     hold("probe_carry", f"P2 {r['name']} [{tile}] full", r["out"], want)
-    ncarry, _, unroll = probe_model.CARRIES[r["name"]]
-    # A shift and two adds per carry per unrolled step; the words are
-    # taken and never read, so only the output moves.
-    rows["probe_carry"] = (r, plain_ms, bound(4 * tile,
-                                              3 * tile * iters * ncarry
-                                              * unroll), None)
+
+    def carry_bound(r, flat=False):
+        # CARRY_OPS per carry per unrolled step over the integer rate
+        # (flat: the same count over the float32 rate); the words are taken
+        # and never read, so only the output moves.
+        ncarry, packed, unroll = probe_model.CARRIES[r["name"]]
+        return bound(4 * r["width"] * (ncarry if packed else 1),
+                     CARRY_OPS * r["width"] * iters * ncarry * unroll,
+                     OPS_PER_S if flat else INT32_OPS_PER_S)
+
+    rows["probe_carry"] = (r, plain_ms, carry_bound(r),
+                           carry_bound(r, flat=True))
 
     r = find("P3", f"L{profile_encode.DEFAULT_LEVEL}", profile_encode.B)
     plain_ms, want = ms_of(lambda: profile_encode.profile_plain(
@@ -1185,7 +1267,7 @@ def phase8(card):
     # coder arithmetic at the float32 rate, the bound before the tree.
     syms = r["words"].view(torch.uint8)
     nsym = syms.numel()
-    ops = nsym * (2 + TREE_PREFIX_OPS + TREE_BUMP_OPS + P3_CODER_OPS)
+    ops = nsym * K1_SYMBOL_OPS   # level 5 runs K1's step
     nbytes = r["words"].nbytes + 2 * r["sizes"].nbytes + r["out"][0].nbytes
     flat = bound(nbytes, 255 * nsym - int(syms.sum(dtype=torch.int64))
                  + 16 * nsym)
@@ -1193,24 +1275,47 @@ def phase8(card):
                                                  INT32_OPS_PER_S), flat)
 
     r = find("P4", probe_layouts.DEFAULT, probe_layouts.B)
-    n, steps = probe_layouts.B, probe_layouts.STEPS
+    steps = probe_layouts.STEPS
     plain_ms, want = ms_of(lambda: probe_layouts.table_plain(
-        r["name"], n, steps, r["seed"].device))
+        r["name"], r["width"], steps, r["seed"].device))
     hold("probe_layouts", f"P4 {r['name']} full", r["out"], want)
-    # Table b counts symbol (7b + t) & 0xFF at step t: the update's 255 - s
-    # adds, one read, an add and a mask; only the sums are written.
-    s = (torch.arange(n)[:, None] * 7 + torch.arange(steps)[None, :]) & 0xFF
-    ops = int((255 - s).sum()) + 3 * n * steps
-    rows["probe_layouts"] = (r, plain_ms, bound(4 * n, ops), None)
+
+    def onehot_bound(r, flat=False):
+        # Table b counts symbol (7b + t) & 0xFF at step t: P4_STEP_OPS a
+        # step over the integer rate; flat: the plain version's update of
+        # 255 - s adds, one read, an add and a mask over the float32 rate.
+        # Only the sums are written.
+        n = r["width"]
+        if not flat:
+            return bound(4 * n, P4_STEP_OPS * n * steps, INT32_OPS_PER_S)
+        # The adds of a table depend only on its offset 7b & 0xFF.
+        t = torch.arange(steps)
+        adds = torch.stack([(255 - ((o + t) & 0xFF)).sum()
+                            for o in range(256)])
+        return bound(4 * n, int(adds[(torch.arange(n) * 7) & 0xFF].sum())
+                     + 3 * n * steps)
+
+    rows["probe_layouts"] = (r, plain_ms, onehot_bound(r),
+                             onehot_bound(r, flat=True))
 
     for key, (r, plain_ms, (bound_ms, by), flat) in rows.items():
-        was = "" if flat is None else (
-            f", integer rate; flat-table count at the float32 rate "
-            f"{flat[0]:.6f} ms")
         print(f"[{card}] {PROBE_ROUTES[key][0]} {r['name']} "
               f"[{r['width']}] full size: kernel {r['ms']:.4f} ms, plain "
-              f"version {plain_ms:.4f} ms, bound {bound_ms:.6f} ms "
-              f"({by}{was}); equal at 0", flush=True)
+              f"version {plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({by}, "
+              f"integer rate; flat-table count at the float32 rate "
+              f"{flat[0]:.6f} ms); equal at 0", flush=True)
+    # P2 and P4 k_onehot at K1's width too (the kernels line keeps the
+    # probes' own widths).
+    wide = (("probe_carry", find("P2", probe_model.DEFAULT_CARRY,
+                                 probe_model.TILES[-1]), carry_bound),
+            ("probe_layouts", find("P4", probe_layouts.DEFAULT,
+                                   probe_layouts.TABLES[-1]), onehot_bound))
+    for key, r, fn in wide:
+        (b, by), flat = fn(r), fn(r, flat=True)
+        print(f"[{card}] {PROBE_ROUTES[key][0]} {r['name']} [{r['width']}]: "
+              f"kernel {r['ms']:.4f} ms, bound {b:.6f} ms ({by}, integer "
+              f"rate; flat-table count at the float32 rate {flat[0]:.6f} "
+              f"ms)", flush=True)
     say("8 full size", "each probe's default, v31 and v32 equal their "
         "plain versions", t0)
     return {key: {"name": PROBE_ROUTES[key][0], "route": "cuda",

@@ -25,8 +25,8 @@
 //     count touches two shared nodes whose addresses follow from it alone;
 //   * the divisions by cum multiply by a reciprocal read from a constant
 //     table a symbol ahead, and the renormalisation shifts both bounds at
-//     once (narrow_by and renorm_s, equal to coder.cuh's narrow and
-//     renorm);
+//     once (narrow_by and renorm_s, equal to the plain coder's
+//     ops/torch_codec.py::_apply_symbol_range and _renorm);
 //   * the bit reader loads the next 4 bytes one refill ahead of use, and
 //     one funnel shift moves the code and brings in its new bits;
 //   * decoded bytes leave four at a time as one 32-bit store; the loop is

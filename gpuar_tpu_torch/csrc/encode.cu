@@ -23,8 +23,8 @@
 //   * the divisions by cum multiply by a reciprocal from a constant table
 //     (cum = 256 + t, the same for every thread, read ahead of the chain
 //     and unchecked below the table's end), and the renormalisation
-//     shifts both bounds at once (narrow_by and renorm_s, equal to
-//     coder.cuh's narrow and renorm);
+//     shifts both bounds at once (narrow_by and renorm_s, equal to the
+//     plain coder's ops/torch_codec.py::_apply_symbol_range and _renorm);
 //   * the bits a symbol settles, the pending underflow run between the
 //     first of them and the rest, leave as one put of a 64-bit
 //     accumulator whenever they fit in 32 bits (a loop only for longer

@@ -16,33 +16,42 @@
 // The table probes keep one 256-entry model per row b of B tables and
 // count symbol c_b(t) = (7b + t) & 0xFF at every step t: the update alone
 // (k_update), a read of C[c_b] then the update (k_gather), and the
-// one-hot form of the read (k_onehot).  Layout: one warp per table, lane
-// j holding C[8j .. 8j+7] in registers, as K1 holds its model
-// (csrc/coder.cuh).  Registers and not shared memory, because that is the
-// layout whose cost K1 pays every symbol: the update is 8 predicated adds
-// per lane, k_gather's read is the owner lane's register by __shfl_sync,
-// and k_onehot's read is the probe's masked sum, every lane offering its
-// entry or 0 to __reduce_add_sync.  (The TPU's [B, 256] and [256, B]
-// layouts are two orientations of one VMEM table; a warp's registers have
-// one.)  k_update stores every final table, so no table's work is dead;
-// k_gather and k_onehot store each table's 16-bit running sum.
+// one-hot form of the read (k_onehot).  They ask it of the codec kernels'
+// own model: one thread holds one table as a PacketModel (QuadModel<64>,
+// packet_model.cuh), in blocks of 64 with 81,920 B of dynamic shared
+// memory, as K1, K2 and K3 hold one packet's.  The update is
+// QuadModel::bump.  k_gather's read is QuadModel::prefix's low, the
+// codec's own read: selects over the registers of the top two levels and
+// two 16-byte shared loads.  k_onehot's read is the same read in one-hot
+// form (onehot_prefix below): each of prefix's selects becomes the reduce
+// of the node's entries, every entry ANDed with a mask that is all ones at
+// the digit's entry and 0 elsewhere, then summed.  So P4 still asks what
+// an indexed read costs against a one-hot reduce of the model, now of
+// K1's read.  (The TPU's [B, 256] and [256, B] layouts are two
+// orientations of one VMEM table; a thread's tree has one.)  k_update
+// stores every final table (model_table.cuh, shared with P1), so no
+// table's work is dead; k_gather and k_onehot store each table's 16-bit
+// running sum.  No warp collective is on a step's path.
 //
 // Each primitive's result passes through opaque(), so the compiler
 // cannot fold a chain of them (the 20 rounds of k_adds would otherwise
 // collapse into a few operations) and every probe does the work it names.
 //
-// What bounds them: the serial chain of each thread or warp (latency);
-// the bytes are the seed and the outputs.
+// What bounds them: the serial chain of each thread (latency); the bytes
+// are the seed and the outputs.
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 #include "coder.cuh"
+#include "model_table.cuh"
+#include "packet_model.cuh"
 
 namespace {
 
-using gpuar::kFull;
-using gpuar::kWarpsPerBlock;
+using gpuar::kU16;
+using gpuar::SharedAllowance;
+using Model = gpuar::PacketModel;
 
 enum Scalar { BASE, ADDS, VARSHIFT, F32SHIFT, CLZ, CLZF, N_SCALAR };
 enum Table { UPDATE, GATHER, ONEHOT, N_TABLE };
@@ -111,36 +120,61 @@ __global__ void scalar_kernel(const int* __restrict__ seed, int n, int steps,
   out[i] = x;
 }
 
+// An all-ones mask where j == k, else 0.
+__device__ __forceinline__ uint32_t hot(int j, int k) {
+  return 0u - static_cast<uint32_t>(j == k);
+}
+
+// x_j for j in [0, 3] as a one-hot reduce: every entry ANDed with its
+// mask, then summed.
+__device__ __forceinline__ uint32_t onehot(int j, uint32_t x0, uint32_t x1,
+                                           uint32_t x2, uint32_t x3) {
+  return (x0 & hot(j, 0)) + (x1 & hot(j, 1)) + (x2 & hot(j, 2)) +
+         (x3 & hot(j, 3));
+}
+
+// C[s], the low of QuadModel::prefix(s), with each of its selects (sel and
+// pick) a one-hot reduce over the same entries: on each level, the S before
+// s's child (0 for child 0) of the node over s; level 1's S1, S2 and S3 of
+// node 1 + j0 are each a reduce over the 4 level-1 nodes.
+__device__ __forceinline__ uint32_t onehot_prefix(const Model& m, int s) {
+  const uint4 n2 = m.node(5 + (s >> 4));
+  const uint4 n3 = m.node(21 + (s >> 2));
+  const int j0 = s >> 6, j1 = (s >> 4) & 3, j2 = (s >> 2) & 3, j3 = s & 3;
+  const uint32_t s1 = onehot(j0, m.a[0], m.a[1], m.a[2], m.a[3]);
+  const uint32_t s2 = onehot(j0, m.b[0], m.b[1], m.b[2], m.b[3]);
+  const uint32_t s3 = onehot(j0, m.c[0], m.c[1], m.c[2], m.c[3]);
+  return onehot(j0, 0u, m.r[0], m.r[1], m.r[2]) + onehot(j1, 0u, s1, s2, s3) +
+         onehot(j2, 0u, n2.x, n2.y, n2.z) + onehot(j3, 0u, n3.x, n3.y, n3.z);
+}
+
+// One table a thread: table b counts (7b + t) & 0xFF at step t.
 template <int P>
-__global__ void __launch_bounds__(32 * kWarpsPerBlock)
+__global__ void __launch_bounds__(Model::kBlock)
 table_kernel(int n_tables, int steps, int* __restrict__ tables,
              int* __restrict__ acc_out) {
-  const int lane = threadIdx.x & 31;
-  const int b = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (b >= n_tables) return;  // whole warp leaves together
-  int c[8];
-#pragma unroll
-  for (int r = 0; r < 8; ++r) c[r] = 8 * lane + r;
-  int acc = 0;
+  extern __shared__ uint4 smem[];  // 16-byte aligned
+  const int b = blockIdx.x * Model::kBlock + threadIdx.x;
+  if (b >= n_tables) return;
+  Model model{reinterpret_cast<char*>(smem) + threadIdx.x * Model::kWidth};
+  model.reset();
+  uint32_t acc = 0;
   for (int t = 0; t < steps; ++t) {
     const int s = (b * 7 + t) & 0xFF;
     if (P == GATHER) {
-      acc = (acc + __shfl_sync(kFull, gpuar::pick(c, s & 7), s >> 3)) & 0xFFFF;
+      uint32_t low, high;
+      model.prefix(s, low, high);
+      acc = (acc + low) & kU16;
     } else if (P == ONEHOT) {
-      int v = 0;
-#pragma unroll
-      for (int r = 0; r < 8; ++r) v = 8 * lane + r == s ? c[r] : v;
-      acc = (acc + __reduce_add_sync(kFull, v)) & 0xFFFF;
+      acc = (acc + onehot_prefix(model, s)) & kU16;
     }
-#pragma unroll
-    for (int r = 0; r < 8; ++r) c[r] += 8 * lane + r > s ? 1 : 0;
+    model.bump(s);
   }
   if (P == UPDATE) {
-    int* row = tables + static_cast<size_t>(b) * 256 + 8 * lane;
-#pragma unroll
-    for (int r = 0; r < 8; ++r) row[r] = c[r];
-  } else if (lane == 0) {
-    acc_out[b] = acc;
+    gpuar::write_table(model, tables + static_cast<size_t>(b) * 256,
+                       [](uint32_t c) { return static_cast<int>(c); });
+  } else {
+    acc_out[b] = static_cast<int>(acc);
   }
 }
 
@@ -154,9 +188,13 @@ cudaError_t launch_scalar(const int* seed, int n, int steps, int* out,
 template <int P>
 cudaError_t launch_table(int n, int steps, int* tables, int* acc,
                          cudaStream_t stream) {
-  const int blocks = (n + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  table_kernel<P><<<blocks, 32 * kWarpsPerBlock, 0, stream>>>(n, steps,
-                                                              tables, acc);
+  const auto kernel = table_kernel<P>;
+  static SharedAllowance allowance;
+  const cudaError_t e =
+      allowance.allow(reinterpret_cast<const void*>(kernel), Model::kBytes);
+  if (e != cudaSuccess) return e;
+  kernel<<<(n + Model::kBlock - 1) / Model::kBlock, Model::kBlock,
+           Model::kBytes, stream>>>(n, steps, tables, acc);
   return cudaGetLastError();
 }
 
@@ -194,4 +232,12 @@ extern "C" int gpuar_probe_table(int n, int steps, int probe, void* tables,
     case ONEHOT: return static_cast<int>(launch_table<ONEHOT>(n, steps, tb, a, st));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// Threads and dynamic shared memory bytes per block of gpuar_probe_table
+// (the same for every table probe: PacketModel's).
+extern "C" int gpuar_probe_table_shape(int* threads, int* smem_bytes) {
+  *threads = Model::kBlock;
+  *smem_bytes = Model::kBytes;
+  return 0;
 }

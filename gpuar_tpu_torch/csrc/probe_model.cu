@@ -36,18 +36,22 @@
 //   * the table-free variants (v9 to v15) run in registers.
 // Each chain reads its column of the input words in chunks
 // (chain_input.cuh, shared with P3).
-// The final table [tile, rows] is written out at the end from the tree or
-// the column (the table-free variants write the initial one), as the
+// The final table [tile, rows] is written out at the end from the tree
+// (model_table.cuh, shared with P4) or the column (the table-free
+// variants write the initial one), as the
 // TPU's stays in its VMEM scratch: an update that no read follows (v2) is
 // then not dropped.  No warp collective is on a step's path.
 //
 // P2 asks what loop-carried state costs: 1, 4 or 8 separate carries, or
-// one packed [8] carry, with the step unrolled 1 or 4 times.  It keeps
-// the first design, one warp per chain: every carry is a register of
-// every lane of the chain's warp; a packed carry is 8 registers too
-// (there is no packing), and every row of it is stored, as the TPU
-// computed every row.  Each carry passes through opaque() every step, so
-// 8 carries that hold equal values are not merged.
+// one packed [8] carry, with the step unrolled 1 or 4 times.  It asks it
+// of K1's own registers: one thread runs one chain, in blocks of 64, its
+// carries in that thread's registers, as K1 holds its coder state.  A
+// packed carry is 8 registers too (there is no packing), and every row of
+// it is stored, as the TPU computed every row.  Each carry passes through
+// opaque() every step, so 8 carries that hold equal values are not merged.
+// A 1-carry step is a shift and an add in dependence, so at any width one
+// chain's latency sets P2's time; more carries a thread add independent
+// chains that the scheduler interleaves.
 //
 // What bounds both on the H100: the serial chain of each step (the
 // model's shared-memory reads and update, integer adds, a data-dependent
@@ -68,12 +72,12 @@
 
 #include "chain_input.cuh"
 #include "coder.cuh"
+#include "model_table.cuh"
 #include "packet_model.cuh"
 
 namespace {
 
 using gpuar::kChunk;
-using gpuar::kWarpsPerBlock;
 using gpuar::PacketModel;
 using gpuar::SharedAllowance;
 
@@ -266,18 +270,18 @@ struct Chain {
 
   // The final table, row s at row[s].
   __device__ __forceinline__ void write(T* row) const {
-    for (int s = 0; s < Tr::kRows; ++s) {
-      int v = s;
-      if constexpr (V == V4_PAIRED) {
-        v = paired(s);
-      } else if constexpr (Tr::kForm == kTree) {
-        uint32_t l, h;
-        model.prefix(s, l, h);
-        v = as_row(l);
-      } else if constexpr (Tr::kForm == kColumn) {
-        v = at(s);
+    if constexpr (Tr::kForm == kTree && V != V4_PAIRED) {
+      gpuar::write_table(model, row, [](uint32_t c) { return as_row(c); });
+    } else {
+      for (int s = 0; s < Tr::kRows; ++s) {
+        int v = s;
+        if constexpr (V == V4_PAIRED) {
+          v = paired(s);
+        } else if constexpr (Tr::kForm == kColumn) {
+          v = at(s);
+        }
+        row[s] = static_cast<T>(v);
       }
-      row[s] = static_cast<T>(v);
     }
   }
 };
@@ -348,15 +352,17 @@ model_kernel(const int* __restrict__ words, int rows_in, int tile, int steps,
   c.write(table + static_cast<size_t>(chain) * Tr::kRows);
 }
 
+// P2's launch: one chain a thread, in blocks of 64 as the codec kernels'.
+constexpr int kCarryBlock = 64;
+
 // P2: `ncarry` carries (packed: one [8] carry) updated c + (c >> 1) + t,
-// `unroll` times per iteration; the chain's result is the sum of its
-// carries (packed: every row, out [ncarry, tile], of which row 0 is the
-// TPU probe's output).
+// `unroll` times per iteration, in the chain's thread's registers; the
+// chain's result is the sum of its carries (packed: every row, out
+// [ncarry, tile], of which row 0 is the TPU probe's output).
 template <int NCARRY, bool PACKED, int UNROLL>
-__global__ void __launch_bounds__(32 * kWarpsPerBlock)
+__global__ void __launch_bounds__(kCarryBlock)
 carry_kernel(int tile, int iters, int* __restrict__ out) {
-  const int lane = threadIdx.x & 31;
-  const int chain = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  const int chain = blockIdx.x * kCarryBlock + threadIdx.x;
   if (chain >= tile) return;
   int c[NCARRY];
 #pragma unroll
@@ -371,7 +377,6 @@ carry_kernel(int tile, int iters, int* __restrict__ out) {
       }
     }
   }
-  if (lane != 0) return;
   if (PACKED) {
 #pragma unroll
     for (int i = 0; i < NCARRY; ++i) out[static_cast<size_t>(i) * tile + chain] = c[i];
@@ -403,9 +408,9 @@ cudaError_t launch_model(const int* words, int rows_in, int tile, int steps,
 
 template <int NCARRY, bool PACKED, int UNROLL>
 cudaError_t launch_carry(int tile, int iters, int* out, cudaStream_t stream) {
-  const int blocks = (tile + kWarpsPerBlock - 1) / kWarpsPerBlock;
   carry_kernel<NCARRY, PACKED, UNROLL>
-      <<<blocks, 32 * kWarpsPerBlock, 0, stream>>>(tile, iters, out);
+      <<<(tile + kCarryBlock - 1) / kCarryBlock, kCarryBlock, 0, stream>>>(
+          tile, iters, out);
   return cudaGetLastError();
 }
 
@@ -478,4 +483,12 @@ extern "C" int gpuar_probe_carry(int tile, int iters, int ncarry, int packed,
   if (!packed && unroll == 4 && ncarry == 8) return launch_carry<8, false, 4>(tile, iters, o, s);
   if (packed && unroll == 4 && ncarry == 8) return launch_carry<8, true, 4>(tile, iters, o, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Threads and dynamic shared memory bytes per block of gpuar_probe_carry
+// (the same for every configuration).
+extern "C" int gpuar_probe_carry_shape(int* threads, int* smem_bytes) {
+  *threads = kCarryBlock;
+  *smem_bytes = 0;
+  return 0;
 }

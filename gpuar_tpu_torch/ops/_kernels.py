@@ -60,6 +60,8 @@ SIGNATURES = {
     # gpuar_probe_carry(tile, iters, ncarry, packed, unroll, out, stream)
     "gpuar_probe_carry": ("probe_model", [_I32, _I32, _I32, _I32, _I32, _VP,
                                           _VP]),
+    # gpuar_probe_carry_shape(*threads, *smem_bytes)
+    "gpuar_probe_carry_shape": ("probe_model", [_VP, _VP]),
     # gpuar_profile_encode(sizes, words, n, steps, level, out, out_words,
     #                      len, stream)
     "gpuar_profile_encode": ("profile_encode", [_VP, _VP, _I32, _I32, _I32,
@@ -72,6 +74,8 @@ SIGNATURES = {
     # gpuar_probe_table(n, steps, probe, tables, acc, stream)
     "gpuar_probe_table": ("probe_layouts", [_I32, _I32, _I32, _VP, _VP,
                                             _VP]),
+    # gpuar_probe_table_shape(*threads, *smem_bytes)
+    "gpuar_probe_table_shape": ("probe_layouts", [_VP, _VP]),
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

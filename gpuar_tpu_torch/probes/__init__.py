@@ -5,9 +5,10 @@ PyTorch version of the same function (a loop over steps of tensor ops on
 the chains' lanes).  A CUDA tensor goes to the hand-written kernel
 (``csrc/probe_model.cu``, ``csrc/profile_encode.cu``,
 ``csrc/probe_layouts.cu``); a CPU tensor goes to the plain version.
-Nothing falls back: a CUDA input launches the kernel or raises.  P1 and
-P3 run one chain a thread on the codec kernels' model
-(``csrc/packet_model.cuh``); P2 and P4 one warp a chain.
+Nothing falls back: a CUDA input launches the kernel or raises.  Every
+probe runs one chain a thread, in blocks of 64: P1, P3 and P4's table
+probes on the codec kernels' model (``csrc/packet_model.cuh``), P2 its
+carries in the thread's registers as K1 holds its coder state.
 
   * ``probe_model``: P1, per-step cost of 21 model-update variants, and
     P2, the cost of loop-carried state;

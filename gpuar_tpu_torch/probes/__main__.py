@@ -14,8 +14,9 @@ variant, level or primitive, with the card's name and power limit:
     advancing one step) of levels 1-5 on B 4096 packets of 8192 random
     bytes, then K1's time on the same bytes, the whole encoder the levels
     break down;
-  * layouts (P4): ms and GB/s-equivalent (STEPS x B / time) of each
-    primitive.
+  * layouts (P4): ms and GB/s-equivalent (STEPS x tables / time) of each
+    primitive, the table probes at each width of ``probe_layouts.TABLES``
+    (the probe's 1024 tables and 8192, one K1 batch).
 
 Times are the least of three CUDA-event timings after one untimed launch.
 With no probe named, all four run.  There is no CPU fallback: without a
@@ -91,18 +92,19 @@ def _encode(dev, card) -> list[dict]:
 
 
 def _layouts(dev, card) -> list[dict]:
-    steps, n = probe_layouts.STEPS, probe_layouts.B
+    steps = probe_layouts.STEPS
     seed = torch.from_numpy(probe_layouts.make_seed()).to(dev)
+    runs = [(name, seed.numel(), lambda name=name: probe_layouts.scalar(
+        seed, name, steps)) for name in probe_layouts.SCALAR]
+    runs += [(name, n, lambda name=name, n=n: probe_layouts.table(
+        seed, name, n, steps))
+        for n in probe_layouts.TABLES for name in probe_layouts.TABLE]
     out = []
-    for name in probe_layouts.PROBES:
-        if name in probe_layouts.SCALAR:
-            run = lambda: probe_layouts.scalar(seed, name, steps)  # noqa: E731
-        else:
-            run = lambda: probe_layouts.table(  # noqa: E731
-                seed, name, n, steps)
+    for name, n, run in runs:
         ms = probes.time_ms(run)
-        print(f"[{card}] P4 {probe_layouts.NAMES[name]:36s} {ms:10.4f} ms "
-              f"{steps * n / ms / 1e6:9.3f} GBps-eq", flush=True)
+        print(f"[{card}] P4 {probe_layouts.NAMES[name]:36s} {n:5d} "
+              f"{ms:10.4f} ms {steps * n / ms / 1e6:9.3f} GBps-eq",
+              flush=True)
         out.append({"probe": "P4", "name": name, "width": n, "ms": ms,
                     "seed": seed, "out": run()})
     return out

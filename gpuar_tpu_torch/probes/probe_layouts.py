@@ -12,7 +12,9 @@ The counterpart of ``benchmarks/probe_layouts.py`` (``k_base`` ..
     symbol (7b + t) & 0xFF at step t: the update alone (``k_update``, the
     final tables), a gather of the symbol's entry before the update
     (``k_gather``) and the one-hot form of that read (``k_onehot``), both
-    giving each table's 16-bit running sum.
+    giving each table's 16-bit running sum.  On the H100 a table is one
+    thread's 4-ary prefix tree, the codec kernels' model, and the reads
+    are that model's own read, by selects or one-hot reduces.
 
 ``scalar`` / ``table`` take a CUDA tensor to the kernel and a CPU tensor
 to the plain versions, which repeat the probe's arithmetic step by step;
@@ -30,12 +32,13 @@ from gpuar_tpu_torch.ops.torch_codec import _clz16
 
 STEPS = 8192
 B = 1024
+TABLES = (B, 8192)   # the table probes' widths timed: the probe's, K1's batch
 U16 = 0xFFFF
 # In the order of csrc/probe_layouts.cu's Scalar and Table enums.
 SCALAR = ("k_base", "k_adds", "k_varshift", "k_f32shift", "k_clz", "k_clzf")
 TABLE = ("k_update", "k_gather", "k_onehot")
 PROBES = SCALAR + TABLE
-DEFAULT = "k_onehot"   # the model's read and update in K1's layout
+DEFAULT = "k_onehot"   # K1's model read in one-hot form, and its update
 NAMES = {"k_base": "base loop", "k_adds": "60 adds [8,128]",
          "k_varshift": "4 native varshifts [8,128]",
          "k_f32shift": "4 f32-trick varshifts [8,128]",

@@ -9,7 +9,8 @@ forms); the output is a checksum ``chk`` per chain, a deterministic
 function of the input.  On the H100 (``csrc/probe_model.cu``) a P1 chain
 is one thread, in blocks of 64, on the codec kernels' model: the updated
 tables are the 4-ary prefix tree of ``csrc/packet_model.cuh``, the
-read-only ones a column of shared memory; a P2 chain is one warp.
+read-only ones a column of shared memory; a P2 chain is one thread too,
+its carries in registers.
 
 ``model`` / ``carry`` take a CUDA tensor to the kernel and a CPU tensor to
 ``model_plain`` / ``carry_plain``, which repeat the probe's arithmetic

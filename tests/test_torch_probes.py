@@ -12,9 +12,10 @@ get [STEPS, TILE].  P3 is compared on ``len`` at every level: the TPU's
 ring and dump have no counterpart in the port, so the stored words are
 compared only between the kernel and its plain version, on the card.
 
-P1's and P3's kernels run one chain a thread on the codec kernels' model;
-numpy mirrors of their arithmetic (QuadMirror and the coder's steps) are
-held to the plain versions here.  The GPU-marked tests hold each kernel
+P1's and P3's kernels and P4's table kernel run one chain a thread on
+the codec kernels' model; numpy mirrors of their arithmetic (QuadMirror,
+the coder's steps, P4's select and one-hot reads) are held to the plain
+versions here.  The GPU-marked tests hold each kernel
 to its plain version at 0 on the card and skip here.
 """
 
@@ -612,6 +613,103 @@ def test_mirrors_catch_mutants(probe, mutant):
         assert not np.array_equal(got[0], plain[0])
 
 
+# --- P4's table probes on the codec kernels' model -------------------------
+#
+# csrc/probe_layouts.cu's table_kernel holds one table a thread as a
+# QuadModel.  p4_mirror follows it for every table at once with
+# test_torch_decode's QuadMirror: k_gather reads C[s] by QuadModel::prefix's
+# selects, k_onehot by onehot_prefix's one-hot reduces, and k_update writes
+# the final table by model_table.cuh's writer (row s is prefix(s)'s low).
+# ``mutant`` breaks one piece: "onehot" takes the leaf's mask one digit
+# off; "row256" reads C[s] as C[((s - 1) & 0xFF) + 1], right for every s
+# but 0, where it reads row 256 (cum, not 0).
+
+def p4_select_read(tree, s, mutant=None):
+    """C[s] for s [B] in [0, 255] by QuadModel::prefix's selects."""
+    if mutant == "row256":
+        return quad_cum(tree, ((s - 1) & 0xFF) + 1)
+    return tree.prefix(s[:, None])[:, 0]
+
+
+def p4_onehot_read(tree, s, mutant=None):
+    """C[s] for s [B] by onehot_prefix: on each level, the node's entries
+    {0, S1, S2, S3} each ANDed with a mask that is all ones at the digit's
+    entry, summed; level 1's S1, S2, S3 of node 1 + j0 each a reduce over
+    the 4 level-1 nodes."""
+    rows = np.arange(len(s))
+    j0, j1, j2, j3 = s >> 6, (s >> 4) & 3, (s >> 2) & 3, s & 3
+    if mutant == "onehot":
+        j3 = (j3 + 1) & 3
+
+    def reduce(j, entries):
+        return sum(e & -(j == k).astype(np.int64)
+                   for k, e in enumerate(entries))
+
+    zero = np.zeros(len(s), np.int64)
+    level1 = [reduce(j0, tree.l1[:, :, i].T) for i in range(3)]
+    return (reduce(j0, [zero, *tree.r.T]) + reduce(j1, [zero, *level1])
+            + reduce(j2, [zero, *tree.l2[rows, s >> 4, :3].T])
+            + reduce(j3, [zero, *tree.l3[rows, s >> 2, :3].T]))
+
+
+def p4_mirror(probe, n, steps, mutant=None):
+    """csrc/probe_layouts.cu's table_kernel for tables 0..n-1 -> k_update:
+    the final tables int32 [n, 256]; k_gather, k_onehot: each table's
+    16-bit running sum int32 [n]."""
+    from test_torch_decode import QuadMirror
+
+    tree, every, b = QuadMirror(n), np.ones(n, bool), np.arange(n)
+    read = p4_onehot_read if probe == "k_onehot" else p4_select_read
+    acc = np.zeros(n, np.int64)
+    for t in range(steps):
+        s = (7 * b + t) & 0xFF
+        if probe != "k_update":
+            acc = (acc + read(tree, s, mutant)) & 0xFFFF
+        tree.bump(s, every)
+    if probe == "k_update":
+        return np.stack([p4_select_read(tree, np.full(n, s), mutant)
+                         for s in range(256)], 1).astype(np.int32)
+    return acc.astype(np.int32)
+
+
+@pytest.mark.parametrize("probe", probe_layouts.TABLE)
+def test_p4_mirror_equals_plain(probe):
+    """Each table probe on the per-thread tree equals the plain version at
+    0: 100 tables (no multiple of 64), 600 steps, so every symbol is
+    counted at least twice in every table."""
+    n, steps = 100, 600
+    want = probe_layouts.table_plain(probe, n, steps)
+    np.testing.assert_array_equal(p4_mirror(probe, n, steps), want.numpy())
+
+
+def test_p4_onehot_read_equals_select_read():
+    """The one-hot read equals prefix's select read for every symbol, on
+    trees that have counted random symbols."""
+    from test_torch_decode import QuadMirror
+
+    rng = np.random.default_rng(31)
+    n = 8
+    tree = QuadMirror(n)
+    for _ in range(500):
+        tree.bump(rng.integers(0, 256, n), np.ones(n, bool))
+    for s in range(256):
+        sym = np.full(n, s)
+        np.testing.assert_array_equal(p4_onehot_read(tree, sym),
+                                      p4_select_read(tree, sym))
+
+
+@pytest.mark.parametrize("probe, mutant", [("k_gather", "row256"),
+                                           ("k_update", "row256"),
+                                           ("k_onehot", "onehot")])
+def test_p4_mirrors_catch_mutants(probe, mutant):
+    """A P4 mirror with a one-hot mask one digit off, or with row 256 read
+    in place of C[0] = 0, differs from the plain version on the inputs
+    that test_p4_mirror_equals_plain uses."""
+    n, steps = 100, 600
+    want = probe_layouts.table_plain(probe, n, steps).numpy()
+    assert not np.array_equal(p4_mirror(probe, n, steps, mutant), want)
+
+
 # --- On the card: each kernel against its plain version at 0. ------------
 
 @pytest.mark.gpu
@@ -682,3 +780,36 @@ def test_p4_kernel_equals_plain(probe, cuda):
         got = probe_layouts.table(seed, probe, 70, steps)
         want = probe_layouts.table_plain(probe, 70, steps, cuda)
     assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("config", list(probe_model.CARRIES))
+def test_p2_kernel_at_k1_width_equals_plain(config, cuda):
+    """One chain a thread in blocks of 64, at K1's batch of 8192 chains
+    (test_p2_kernel_equals_plain takes 100, a partial block)."""
+    words = torch.zeros((1, 8192), dtype=torch.int32, device=cuda)
+    got = probe_model.carry(words, config, 1001)
+    assert torch.equal(got, probe_model.carry_plain(8192, 1001, config, cuda))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", (100, 8192))
+@pytest.mark.parametrize("probe", probe_layouts.TABLE)
+def test_p4_table_kernel_equals_plain(probe, n, cuda):
+    """One table a thread on PacketModel: 100 tables end in a partial
+    block, 8192 are K1's batch; 600 steps count every symbol at least
+    twice."""
+    seed = torch.zeros(1, dtype=torch.int32, device=cuda)
+    got = probe_layouts.table(seed, probe, n, 600)
+    assert torch.equal(got, probe_layouts.table_plain(probe, n, 600, cuda))
+
+
+@pytest.mark.gpu
+def test_p2_p4_launch_one_chain_a_thread(cuda):
+    """P2 and P4's table probes launch 64 threads a block; P4's tables
+    take PacketModel's shared memory, as the codec kernels do."""
+    from gpuar_tpu_torch.ops import _kernels
+
+    assert _kernels.launch_shape("gpuar_probe_carry_shape") == (64, 0)
+    assert _kernels.launch_shape("gpuar_probe_table_shape") \
+        == _kernels.launch_shape("gpuar_decode_shape") == (64, 81920)
