@@ -71,10 +71,16 @@ exit, no result line):
      the executable specification, archive == host archive and, at full
      size, its pinned sha256, md5 round trip, then the kernel layer and
      end-to-end numbers), ``bench.run --mib 16``, ``bench.soak --iters
-     9`` with debug decode, and ``bench.scaling``'s sleep control (worlds
-     1 and 2 at the benchmark's measured compress rate).  The scaling
-     harness's gpu backend, whose ranks share one card here, is left to
-     a call of its own.
+     9`` with debug decode, and ``bench.scaling`` three times: the sleep
+     control's compress (worlds 1 and 2 at the benchmark's measured
+     compress rate); its decompress (``--mode d``, worlds 1, 2 and 4 at
+     4 MiB a rank emulating 1 GiB in 16 segments, at the measured
+     decompress rate); and the GPU decompress at full width (``--backend
+     gpu --mode d``, worlds 1 and 2 at 128 MiB a rank in ``_smoke/``: two
+     64 MiB segments a rank, K2 on full launches, the owned-segment
+     submit-ahead running), whose ranks share the one card, so its
+     efficiencies are not a scaling figure.  Each decompress run checks
+     its decoded file against the input.
 
     python3 chip_smoke.py --profile
 
@@ -1327,30 +1333,38 @@ def phase8(card):
             for key, (r, plain_ms, (bound_ms, by), _) in rows.items()}
 
 
-# Phase 9: (name, module and arguments) of each harness run.
+# Phase 9: (name, module and arguments, the random_64m rate it takes as
+# --chip-gbps or None) of each harness run.
 HARNESSES = (
     ("bench random_64m", ["gpuar_tpu_torch.bench", "--cell", "random_64m",
-                          "--seconds", "3"]),
+                          "--seconds", "3"], None),
     ("bench enwik8_proxy_100m at 16 MiB",
      ["gpuar_tpu_torch.bench", "--cell", "enwik8_proxy_100m", "--mib", "16",
-      "--seconds", "3"]),
-    ("run --mib 16", ["gpuar_tpu_torch.bench.run", "--mib", "16"]),
-    ("soak --iters 9", ["gpuar_tpu_torch.bench.soak", "--iters", "9"]),
+      "--seconds", "3"], None),
+    ("run --mib 16", ["gpuar_tpu_torch.bench.run", "--mib", "16"], None),
+    ("soak --iters 9", ["gpuar_tpu_torch.bench.soak", "--iters", "9"], None),
     ("scaling sleep", ["gpuar_tpu_torch.bench.scaling", "--backend",
-                       "sleep", "--worlds", "1,2"]),
+                       "sleep", "--worlds", "1,2"], "compress_gbps"),
+    ("scaling sleep d", ["gpuar_tpu_torch.bench.scaling", "--backend",
+                         "sleep", "--mode", "d", "--worlds", "1,2,4",
+                         "--per-host-mib", "4", "--emulate-gib", "1",
+                         "--segments-per-host", "16"], "decompress_gbps"),
+    ("scaling gpu d", ["gpuar_tpu_torch.bench.scaling", "--backend", "gpu",
+                       "--mode", "d", "--worlds", "1,2", "--per-host-mib",
+                       "128", "--tmpdir", str(WORK)], None),
 )
 
 
 def phase9(card) -> None:
     """The harnesses (HARNESSES), each ``python -m`` in a subprocess as a
-    user runs it; the sleep control runs at the random_64m cell's measured
-    compress rate.  Prints each one's result lines (its JSON lines
-    prefixed, so they are not taken for this script's own)."""
-    rate = None
-    for name, args in HARNESSES:
+    user runs it; the sleep controls run at the random_64m cell's measured
+    rate of the verb they time.  Prints each one's result lines (its JSON
+    lines prefixed, so they are not taken for this script's own)."""
+    rates = None
+    for name, args, rate in HARNESSES:
         t0 = time.perf_counter()
-        if name == "scaling sleep":
-            args = [*args, "--chip-gbps", str(rate)]
+        if rate is not None:
+            args = [*args, "--chip-gbps", str(rates[rate])]
         r = subprocess.run([sys.executable, "-m", *args], cwd=ROOT,
                            capture_output=True, text=True, timeout=600)
         if r.returncode != 0:
@@ -1361,7 +1375,7 @@ def phase9(card) -> None:
             if line.strip():
                 print(f"[9 {name}] {line}", flush=True)
         if name == "bench random_64m":
-            rate = json.loads(lines[-1])["compress_gbps"]
+            rates = json.loads(lines[-1])
         say(f"9 {name}", f"exit 0 ({len(lines)} lines)", t0)
 
 

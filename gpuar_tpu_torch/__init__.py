@@ -11,7 +11,9 @@ torch.distributed over gloo); the library calls below run in one process.
 The host layer (config, container, the native golden codec, the
 pipeline drive loops, the multi-host planners) is the port's own copy of
 ``gpuar_tpu``'s, under the same names; this package imports ``torch`` and
-nothing of ``jax`` or ``gpuar_tpu``.
+nothing of ``jax`` or ``gpuar_tpu``.  ``HostCompressor``,
+``GPUCompressor``, ``DistributedCompressor`` and ``MeshCodec`` are
+importable from the package itself, loaded when first named.
 """
 
 __version__ = "0.1.0"
@@ -58,3 +60,22 @@ def verify(path, *, deep: bool = False, threads: int = 1) -> dict:
     pipeline.verify_archive."""
     from gpuar_tpu_torch.pipeline import verify_archive
     return verify_archive(path, deep=deep, threads=threads)
+
+
+def __getattr__(name):
+    # The library classes, imported when first asked for (the JAX
+    # package's lazy names; GPUCompressor stands for its TPUCompressor).
+    if name == "HostCompressor":
+        from gpuar_tpu_torch.pipeline import HostCompressor
+        return HostCompressor
+    if name == "GPUCompressor":
+        from gpuar_tpu_torch.parallel.runner import GPUCompressor
+        return GPUCompressor
+    if name == "DistributedCompressor":
+        from gpuar_tpu_torch.parallel.distributed import DistributedCompressor
+        return DistributedCompressor
+    if name == "MeshCodec":
+        from gpuar_tpu_torch.parallel.mesh import MeshCodec
+        return MeshCodec
+    raise AttributeError(
+        f"module 'gpuar_tpu_torch' has no attribute {name!r}")

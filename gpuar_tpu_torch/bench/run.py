@@ -1,7 +1,7 @@
 """The corpus table and the file end-to-end rows on the card (the
 counterpart of ``benchmarks/run.py``).
 
-    python -m gpuar_tpu_torch.bench.run [--mib 64] [--out PATH]
+    python -m gpuar_tpu_torch.bench.run [--mib 64] [--skip-e2e] [--out PATH]
 
 For each corpus, ``--mib`` MiB of it:
 
@@ -18,13 +18,16 @@ super-batch already on the card, every packet equal to the golden codec
 and ``SPEC_SAMPLE`` of them to the executable specification (the bench's
 cells hold 256; the table keeps to a few, which need no process pool),
 K2 back to the bytes, each timed by CUDA events (least of 3); encode and
-decode GB/s are the corpus bytes over the summed least times.  Then two
-rows of the whole file pipeline (``GPUCompressor().compress`` /
-``.decompress`` of a file, warmed on the same file first, one timed run,
-md5 round trip) for random and enwik-proxy, with ``CompressionInfo``'s
-process/io split.  Prints a markdown table beside the card's name and
-power limit, and writes the rows as JSON to ``--out`` (default
-``_bench/run_results.json`` in the package, git-ignored).
+decode GB/s are the corpus bytes over the summed least times.  Then,
+unless ``--skip-e2e``, two rows of the whole file pipeline
+(``GPUCompressor().compress`` / ``.decompress`` of a file, warmed on the
+same file first, one timed run, md5 round trip) for random and
+enwik-proxy, with ``CompressionInfo``'s process/io split.  Prints a
+markdown table beside the card's name and power limit, and writes the
+rows as JSON to ``--out`` (default ``_bench/run_results.json`` in the
+package, git-ignored).  ``main`` takes the device as an argument too:
+the tests pass the CPU, where the kernels' plain versions run and no
+rate is reported.
 """
 
 from __future__ import annotations
@@ -66,8 +69,8 @@ def text_corpus(size: int) -> bytes:
     return bytes(out[:size])
 
 
-def corpus_list(mib: int):
-    size = mib << 20
+def corpus_list(mib: float):
+    size = int(mib * (1 << 20))
     yield "random", corpora.random_bytes(size)
     yield "enwik-proxy", corpora.cached("enwik", size)
     yield "text", text_corpus(size)
@@ -84,17 +87,21 @@ def bench_corpus(name: str, data: bytes, device: torch.device,
     rows = kernel_layer(data, device, host, reps=3,
                         golden_sample=SPEC_SAMPLE)
     total = len(data)
-    t_enc = sum(r["k1_ms"] for r in rows)
-    t_dec = sum(r["k2_ms"] for r in rows)
+    timed = device.type == "cuda"   # the CPU's plain versions are untimed
+
+    def gbps(key):
+        return round(total / sum(r[key] for r in rows) / 1e6, 4) \
+            if timed else None
+
     return {
         "corpus": name,
         "mib": total >> 20,
-        "encode_gbps": round(total / t_enc / 1e6, 4),
-        "decode_gbps": round(total / t_dec / 1e6, 4),
+        "encode_gbps": gbps("k1_ms"),
+        "decode_gbps": gbps("k2_ms"),
         "ratio": round((sum(r["comp_bytes"] for r in rows) + 20) / total, 6),
         "roundtrip": "bit-exact, every packet golden",
-        "k1_ms": [r["k1_ms"] for r in rows],
-        "k2_ms": [r["k2_ms"] for r in rows],
+        "k1_ms": [r["k1_ms"] for r in rows] if timed else None,
+        "k2_ms": [r["k2_ms"] for r in rows] if timed else None,
     }
 
 
@@ -127,22 +134,28 @@ def bench_file_level(data: bytes, name: str, gpu, work: Path) -> dict:
     }
 
 
-def main(argv=None) -> list[dict]:
+def main(argv=None, device: torch.device | None = None) -> list[dict]:
+    """The command; ``device`` (default cuda:0, which must exist) is where
+    the corpus rows' kernels run."""
     ap = argparse.ArgumentParser(prog="python -m gpuar_tpu_torch.bench.run",
                                  description=__doc__.splitlines()[0])
-    ap.add_argument("--mib", type=int, default=64)
+    ap.add_argument("--mib", type=float, default=64)
+    ap.add_argument("--skip-e2e", action="store_true",
+                    help="the corpus table alone, without the file "
+                         "end-to-end rows")
     ap.add_argument("--out", default=str(OUT / "run_results.json"),
                     help="where the rows go as JSON")
     args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        raise SystemExit("gpuar_tpu_torch.bench.run: no CUDA device "
-                         "(torch.cuda.is_available() is false)")
+    if device is None:
+        if not torch.cuda.is_available():
+            raise SystemExit("gpuar_tpu_torch.bench.run: no CUDA device "
+                             "(torch.cuda.is_available() is false)")
+        device = torch.device("cuda", 0)
     from gpuar_tpu_torch.parallel.runner import GPUCompressor
     from gpuar_tpu_torch.pipeline import HostCompressor
     from gpuar_tpu_torch.probes import card as card_of
 
     card = card_of()
-    device = torch.device("cuda", 0)
     host = HostCompressor(threads=0)
     rows, data_of = [], {}
     for name, data in corpus_list(args.mib):
@@ -150,13 +163,14 @@ def main(argv=None) -> list[dict]:
         if name in ("random", "enwik-proxy"):
             data_of[name] = data
         print(f"done: {rows[-1]}", flush=True)
-    OUT.mkdir(parents=True, exist_ok=True)
-    gpu = GPUCompressor()
-    for name in ("random", "enwik-proxy"):
-        with tempfile.TemporaryDirectory(dir=OUT) as work:
-            rows.append(bench_file_level(data_of[name], name, gpu,
-                                         Path(work)))
-        print(f"done: {rows[-1]}", flush=True)
+    if not args.skip_e2e:
+        OUT.mkdir(parents=True, exist_ok=True)
+        gpu = GPUCompressor()
+        for name in ("random", "enwik-proxy"):
+            with tempfile.TemporaryDirectory(dir=OUT) as work:
+                rows.append(bench_file_level(data_of[name], name, gpu,
+                                             Path(work)))
+            print(f"done: {rows[-1]}", flush=True)
 
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)

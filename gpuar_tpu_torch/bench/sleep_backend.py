@@ -39,10 +39,15 @@ class SleepCompressor(Compressor):
     sleeps out the remainder — so host I/O overlap behaves exactly like
     the real device pipeline."""
 
-    def __init__(self, gbps: float,
+    def __init__(self, gbps: float, time_scale: float = 1.0,
                  super_batch_packets: int = DEFAULT_SUPER_BATCH_PACKETS):
         super().__init__(super_batch_packets=super_batch_packets)
         self.gbps = float(gbps)
+        # time_scale > 1 emulates a larger device payload than the bytes
+        # moved (scaling.py --emulate-gib): the device time scales with the
+        # emulated payload while the coordination metadata does not, so a
+        # small real body keeps its byte-moving CPU out of the measurement.
+        self.time_scale = float(time_scale)
         # A real device serializes submitted batches: submit-ahead hides
         # HOST time behind device compute, it does not double device
         # throughput.  Deadlines therefore chain off a device-busy cursor
@@ -52,7 +57,8 @@ class SleepCompressor(Compressor):
 
     def _deadline(self, nbytes: int) -> float:
         start = max(time.perf_counter(), self._busy_until)
-        self._busy_until = start + nbytes / (self.gbps * 1e9)
+        self._busy_until = start + (
+            nbytes * self.time_scale / (self.gbps * 1e9))
         return self._busy_until
 
     # --- encode -------------------------------------------------------------

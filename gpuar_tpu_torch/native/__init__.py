@@ -2,15 +2,16 @@
 ``gpuar_tpu/native/golden.cpp``), built with g++ and loaded with ctypes.
 
 It is the port's ``--host`` codec (``pipeline.HostCompressor``), the deep
-check of ``verify_archive`` and the host splice of the GPU path
-(``splice_at``, ``expand_at``).  The library is compiled at first use
-into ``gpuar_tpu_torch/_build/`` (git-ignored), keyed by a hash of the
-source, so an edit rebuilds it.  Each build writes a temporary file named
-by its process id and renames it into place, so processes that build at
-once (test workers in a fresh checkout) never see one another's
-half-written library.
+check of ``verify_archive``, the host splice of the GPU path
+(``splice_at``, ``expand_at``) and the stream codec of whole ``.gip``
+bodies (``encode_stream``, ``decode_stream``).  The library is compiled
+at first use into ``gpuar_tpu_torch/_build/`` (git-ignored), keyed by a
+hash of the source, so an edit rebuilds it.  Each build writes a
+temporary file named by its process id and renames it into place, so
+processes that build at once (test workers in a fresh checkout) never see
+one another's half-written library.
 
-Only the entry points the port calls are bound.
+Every entry point of the JAX package's loader is bound, under its name.
 """
 
 from __future__ import annotations
@@ -80,6 +81,11 @@ def load() -> ctypes.CDLL:
             lib.tg_decode_batch.argtypes = [u8p, long_, long_, u8p, long_,
                                             i32p]
             lib.tg_decode_batch.restype = None
+            lib.tg_encode_stream.argtypes = [u8p, long_, ctypes.c_int, u8p,
+                                             long_]
+            lib.tg_encode_stream.restype = long_
+            lib.tg_decode_stream.argtypes = [u8p, long_, u8p, long_]
+            lib.tg_decode_stream.restype = long_
             lib.tg_splice.argtypes = [u8p, long_, i32p, long_, u8p, long_]
             lib.tg_splice.restype = long_
             lib.tg_splice_at.argtypes = [u8p, long_, i64p, i32p, long_, u8p,
@@ -161,6 +167,41 @@ def decode_batch(packets: np.ndarray,
     lib.tg_decode_batch(_u8p(packets), packets.shape[1], n, _u8p(out),
                         out_stride, _i32p(lengths))
     return out[:n], lengths[:n]
+
+
+def encode_stream(data: np.ndarray | bytes,
+                  packet_size: int = UNCOMPRESSED_PACKET_SIZE) -> bytes:
+    """Raw bytes -> a back-to-back .gip packet body."""
+    lib = load()
+    if isinstance(data, (bytes, bytearray, memoryview)):
+        data = np.frombuffer(bytes(data), dtype=np.uint8)
+    data = np.ascontiguousarray(data, dtype=np.uint8)
+    # Room for every packet's worst case: its bytes, 512 of coder
+    # overhead and its header.
+    npackets = -(-max(data.size, 1) // packet_size)
+    cap = data.size + npackets * (512 + PACKET_HEADER_LENGTH) + 64
+    out = np.empty(cap, dtype=np.uint8)
+    w = lib.tg_encode_stream(_u8p(data), data.size, packet_size, _u8p(out),
+                             cap)
+    if w < 0:
+        raise RuntimeError("native encode_stream overflow")
+    return out[:w].tobytes()
+
+
+def decode_stream(body: np.ndarray | bytes, out_cap: int) -> bytes:
+    """A back-to-back .gip packet body -> its raw bytes (at most
+    ``out_cap``)."""
+    lib = load()
+    if isinstance(body, (bytes, bytearray, memoryview)):
+        body = np.frombuffer(bytes(body), dtype=np.uint8)
+    body = np.ascontiguousarray(body, dtype=np.uint8)
+    out = np.empty(max(out_cap, 1), dtype=np.uint8)
+    w = lib.tg_decode_stream(_u8p(body), body.size, _u8p(out), out.size)
+    if w == -1:
+        raise ValueError("Incorrect file format: malformed packet framing")
+    if w == -2:
+        raise ValueError("decode output overflow")
+    return out[:w].tobytes()
 
 
 def splice(rows: np.ndarray, lengths: np.ndarray) -> np.ndarray:

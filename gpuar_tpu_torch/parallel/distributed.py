@@ -10,11 +10,13 @@ protocol and the same archive:
 * decompress: rank 0 walks the packet index of the archive and broadcasts
   it in geometrically growing groups of super-batch segments as it walks;
   segment s is decoded by rank ``s % world`` and written at its walked raw
-  offset.
+  offset.  A backend with the compacted-blob interface (GPUCompressor)
+  gets each segment as a row-aligned blob, any other (HostCompressor, the
+  sleep control) as a fixed-stride batch.
 
 Every process needs the same shared filesystem.  The pure planning
-helpers, the prefetch thread and the segment loader are copies of the JAX
-module's.  Its five collective seams are replaced here with
+helpers, the index walks, the prefetch thread and the segment loaders are
+copies of the JAX module's.  Its five collective seams are replaced here with
 ``torch.distributed`` on **gloo**:
 ``initialize``, ``process_info``, ``_allgather_sizes`` (int64 travels as
 it is, so the u32 halves are gone), ``_barrier`` and the broadcasts of
@@ -40,6 +42,7 @@ import torch.distributed as dist
 
 from gpuar_tpu_torch import container, native
 from gpuar_tpu_torch.config import (
+    COMPRESSED_PACKET_SIZE,
     PACKET_HEADER_LENGTH,
     UNCOMPRESSED_PACKET_SIZE,
 )
@@ -82,6 +85,23 @@ def exclusive_scan(sizes: np.ndarray) -> np.ndarray:
     out = np.zeros_like(sizes)
     np.cumsum(sizes[:-1], out=out[1:])
     return out
+
+
+def walk_packet_index(stream, compressed_body_size: int,
+                      block_size: int = 8 << 20) -> np.ndarray:
+    """Scan the packet headers of a .gip body -> a [2, n+1] int64 index:
+    row 0 the compressed byte offsets of the packets (relative to the
+    body), row 1 the raw offsets, each ending with the total.  Raw offsets
+    come from the packets' raw-size headers, so short non-final packets
+    land right; sizes are validated as the walk hops header to header.
+    The whole-body form of ``walk_packet_index_chunks``, which decode
+    uses."""
+    # Every packet takes at least its 4-byte header, so a segment of
+    # body-size packets is never cut: the walk yields one segment.
+    segs = list(walk_packet_index_chunks(
+        stream, compressed_body_size, max(compressed_body_size, 1),
+        block_size))
+    return segs[0] if segs else np.zeros((2, 1), np.int64)
 
 
 def walk_packet_index_chunks(stream, compressed_body_size: int,
@@ -242,10 +262,12 @@ class DistributedCompressor:
     """Multi-host compressor: every rank runs it against a shared
     filesystem; on a world of one it writes the local pipeline's archive.
 
-    The local codec work goes to a per-process backend with the
-    compacted-blob decode interface (``decode_blob_geometry``,
-    ``decode_submit_blob``): by default GPUCompressor on this process's
-    local GPUs.
+    The local codec work goes to a per-process ``pipeline.Compressor``
+    backend, by default GPUCompressor on this process's local GPUs.
+    Decode hands each owned segment to the backend's compacted-blob
+    interface (``decode_blob_geometry``, ``decode_submit_blob``) where it
+    has one, and to ``decode_submit`` as a fixed-stride batch where it has
+    not (HostCompressor, the sleep control).
     """
 
     def __init__(self, backend=None):
@@ -365,7 +387,9 @@ class DistributedCompressor:
             body = _BodyView(fin, container.HEADER_LENGTH)
             body_size = header.compressed_size - container.HEADER_LENGTH
             chunkp = self.backend.super_batch_packets
-            blob_geom = self.backend.decode_blob_geometry()
+            blob_geom = getattr(self.backend, "decode_blob_geometry", None)
+            if blob_geom is not None:
+                blob_geom = blob_geom()
             # Progress is global: segment raw offsets come from the walked
             # index, so the end offset of the last segment this rank
             # finished covers every earlier segment, whoever owned it.
@@ -409,13 +433,21 @@ class DistributedCompressor:
                         # Fetch the previous owned segment only once this
                         # one is submitted, so the device decodes N+world
                         # while this rank writes N.
-                        with io:
-                            ublob, roff, clen, raw_sizes = _load_segment_blob(
-                                body, seg, *blob_geom)
-                        with process:
-                            handle = (self.backend.decode_submit_blob(
-                                ublob, roff, clen, raw_sizes), raw_sizes,
-                                int(seg[1, 0]), int(seg[1, -1]))
+                        if blob_geom is not None:
+                            with io:
+                                ublob, roff, clen, raw_sizes = \
+                                    _load_segment_blob(body, seg, *blob_geom)
+                            with process:
+                                h = self.backend.decode_submit_blob(
+                                    ublob, roff, clen, raw_sizes)
+                        else:
+                            with io:
+                                packets, raw_sizes = _load_segment(body, seg)
+                            with process:
+                                h = self.backend.decode_submit(packets,
+                                                               raw_sizes)
+                        handle = (h, raw_sizes, int(seg[1, 0]),
+                                  int(seg[1, -1]))
                         if pending is not None:
                             _drain(pending)
                         pending = handle
@@ -501,15 +533,11 @@ class _BodyView:
         return self._stream.read(n)
 
 
-def _load_segment_blob(body: "_BodyView", seg: np.ndarray,
-                       row_bytes: int, bucket_rows: int):
-    """Load one walked index segment straight into the row-aligned device
-    upload blob (pipeline._PacketReader.read_batch_blob's twin): the
-    segment body read IS the dense packet concatenation, so a single
-    native.expand_at scatter builds the blob.  Returns (blob, row_offsets,
-    comp_len, raw_sizes) for backend.decode_submit_blob."""
+def _read_segment(body: "_BodyView", seg: np.ndarray):
+    """One walked segment's body bytes -> (data uint8, comp_len int32 [k],
+    raw_sizes int32 [k]).  The walk validates headers only, so a body cut
+    off mid-packet is first seen here."""
     off = seg[0]
-    n = off.shape[0] - 1
     comp_len = np.diff(off).astype(np.int32)
     raw_sizes = np.diff(seg[1]).astype(np.int32)
     base = int(off[0])
@@ -519,12 +547,37 @@ def _load_segment_blob(body: "_BodyView", seg: np.ndarray,
         raise container.ContainerError(
             "Incorrect file format: truncated packet body"
         )
+    return np.frombuffer(data, np.uint8), comp_len, raw_sizes
+
+
+def _load_segment(body: "_BodyView", seg: np.ndarray):
+    """Load one walked index segment ([2, k+1] absolute offsets) into a
+    fixed-stride batch for ``decode_submit``: (packets uint8 [k,
+    COMPRESSED_PACKET_SIZE], each packet's framed bytes at the start of
+    its row and zeros after them; raw_sizes int32 [k]).  One
+    ``native.expand_at`` scatter builds it, not a loop over packets."""
+    data, comp_len, raw_sizes = _read_segment(body, seg)
+    k = comp_len.shape[0]
+    stride = COMPRESSED_PACKET_SIZE
+    packets = native.expand_at(data, np.arange(k, dtype=np.int64) * stride,
+                               comp_len, k * stride)
+    return packets.reshape(k, stride), raw_sizes
+
+
+def _load_segment_blob(body: "_BodyView", seg: np.ndarray,
+                       row_bytes: int, bucket_rows: int):
+    """Load one walked index segment straight into the row-aligned device
+    upload blob (pipeline._PacketReader.read_batch_blob's twin): the
+    segment body read IS the dense packet concatenation, so a single
+    native.expand_at scatter builds the blob.  Returns (blob, row_offsets,
+    comp_len, raw_sizes) for backend.decode_submit_blob."""
+    data, comp_len, raw_sizes = _read_segment(body, seg)
+    n = comp_len.shape[0]
     rcnt = (comp_len + row_bytes - 1) // row_bytes
     roff = np.zeros(n, np.int32)
     np.cumsum(rcnt[:-1], out=roff[1:])
     rows = int(roff[-1] + rcnt[-1]) if n else 0
     kb = -(-max(rows, 1) // bucket_rows) * bucket_rows
-    blob = native.expand_at(
-        np.frombuffer(data, np.uint8),
-        roff.astype(np.int64) * row_bytes, comp_len, kb * row_bytes)
+    blob = native.expand_at(data, roff.astype(np.int64) * row_bytes,
+                            comp_len, kb * row_bytes)
     return blob, roff, comp_len, raw_sizes

@@ -17,6 +17,10 @@ results in packet order.
   downloaded straight into its rows of one pinned ``[n, packet_size]``
   batch buffer, so the host never concatenates shards; debug flags are
   joined in packet order and checked once.
+- The JAX class's synchronous stride API (``encode``, ``encode_async`` /
+  ``encode_wait``, ``encode_body``, ``decode``, ``decode_wait``) runs the
+  same shards: each shard's fixed-stride packets and lengths land in its
+  rows of one batch buffer.  The file pipeline does not call it.
 
 One device takes the same path as several, with one shard.
 What the JAX class needs and this one drops: lane padding to a quantum
@@ -32,6 +36,7 @@ import torch
 
 from gpuar_tpu_torch import native
 from gpuar_tpu_torch.config import UNCOMPRESSED_PACKET_SIZE
+from gpuar_tpu_torch.ops import encode as enc_ops
 from gpuar_tpu_torch.ops.decode import check_debug_flags
 from gpuar_tpu_torch.parallel.codec import DeviceCodec, _Slot
 
@@ -101,6 +106,44 @@ class MeshCodec:
         return (native.splice_at(buf[:pos].numpy(), np.concatenate(offsets),
                                  lengths), lengths)
 
+    def encode_body(self, data: np.ndarray, sizes: np.ndarray):
+        """encode_body_wait(encode_body_async(data, sizes))."""
+        return self.encode_body_wait(self.encode_body_async(data, sizes))
+
+    def encode_async(self, data: np.ndarray, sizes: np.ndarray):
+        """Launch every shard's K1 with its fixed-stride result downloaded
+        into the shard's rows of one batch buffer; returns a handle for
+        encode_wait."""
+        n = data.shape[0]
+        slot = self._slot()
+        packets = slot.buf("packets", n * self.stride).view(n, self.stride)
+        lengths = slot.buf("lengths", 4 * n).view(torch.int32)
+        parts = []
+        for codec, (a, b) in self._shards(n):
+            cs = codec._slot()
+            with codec._on_stream():
+                pk, ln = enc_ops.encode_batch(
+                    codec._upload(cs, "data", data[a:b]),
+                    codec._upload(cs, "sizes",
+                                  np.asarray(sizes[a:b], np.int32)))
+                codec._download(cs, "packets", pk, into=packets[a:b])
+                codec._download(cs, "lengths", ln, into=lengths[a:b])
+            parts.append((codec, codec._record(cs)))
+        return packets, lengths, parts
+
+    def encode_wait(self, handle):
+        """-> (packets uint8 [n, stride], lengths int32 [n]) in packet
+        order, copies (as DeviceCodec.encode returns them)."""
+        packets, lengths, parts = handle
+        for codec, event in parts:
+            codec._wait(event)
+        return packets.numpy().copy(), lengths.numpy().copy()
+
+    def encode(self, data: np.ndarray, sizes: np.ndarray):
+        """Padded raw packets [n, packet_size] uint8 -> (packets uint8
+        [n, stride], lengths int32 [n])."""
+        return self.encode_wait(self.encode_async(data, sizes))
+
     # --- decode ------------------------------------------------------------
     def _out(self, n: int) -> torch.Tensor:
         return self._slot().buf("out", n * self.packet_size) \
@@ -143,3 +186,12 @@ class MeshCodec:
             check_debug_flags(np.concatenate(flags, axis=1),
                               np.concatenate(comp_len), out.shape[0])
         return out.numpy()
+
+    # The JAX class's name for the wait of decode_async.
+    decode_wait = decode_body_wait
+
+    def decode(self, packets: np.ndarray, raw_sizes: np.ndarray):
+        """Stride form, synchronous -> raw uint8 [n, packet_size] (a
+        copy)."""
+        return self.decode_body_wait(
+            self.decode_async(packets, raw_sizes)).copy()

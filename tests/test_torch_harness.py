@@ -8,8 +8,11 @@ copy.  Then the harnesses run at a few packets: the soak through
 HostCompressor and ``GPUCompressor(devices=[cpu])`` (the kernels' plain
 versions), the underflow adversary and debug decode included; bigfile at
 8 MiB with ``--host`` and the 4 GiB check off; scaling at worlds 1 and 2
-with the host and sleep backends over gloo; ``run``'s file row and text
-corpus.  The GPU-marked test runs ``run``'s kernel row on the card.
+with the host and sleep backends over gloo, compress and decompress (the
+decoded file checked), its sizing arithmetic held to
+``benchmarks/scaling.py``'s; ``run``'s file row, text corpus and table
+without the file rows (``--skip-e2e``).  The GPU-marked tests run
+``run``'s kernel row and the GPU decompress scaling on the card.
 """
 
 import json
@@ -218,3 +221,145 @@ def test_gpu_run_corpus_row_on_the_card():
                            torch.device("cuda", 0), HostCompressor(threads=0))
     assert row["encode_gbps"] > 0 and row["decode_gbps"] > 0
     assert 0.4 < row["ratio"] < 0.75
+
+
+JAX_KEYS = {"metric", "mode", "backend", "per_host_bytes",
+            "emulated_gib_per_host", "shared_machine", "chip_gbps_assumed",
+            "worlds"}
+WORLD_KEYS = {"world", "wall", "coord", "process", "io", "cpu_total",
+              "wall_efficiency", "serialized_efficiency",
+              "projected_efficiency", "projected_efficiency_1gib_per_host"}
+
+
+@pytest.mark.parametrize("backend", ["host", "sleep"])
+def test_scaling_decompress_worlds_1_and_2_over_gloo(tmp_path, backend):
+    """--mode d: every rank compresses, then the decompress is timed; the
+    harness raises unless the decoded file equals the input."""
+    args = ["--backend", backend, "--mode", "d", "--worlds", "1,2",
+            "--per-host-mib", "0.5", "--tmpdir", str(tmp_path)]
+    if backend == "sleep":
+        args += ["--chip-gbps", "0.5"]
+    out = scaling.main(args)
+    assert out["mode"] == "d" and out["backend"] == backend
+    assert set(out) == JAX_KEYS
+    assert [w["world"] for w in out["worlds"]] == [1, 2]
+    for w in out["worlds"]:
+        assert set(w) == WORLD_KEYS and w["wall"] > 0
+    assert list(tmp_path.iterdir()) == []   # the worlds' files are gone
+
+
+def test_scaling_decompress_checks_the_round_trip(tmp_path, monkeypatch):
+    """A rank whose decode flips every bit 0 fails the world."""
+    monkeypatch.setattr(scaling, "RUN_WORKER", (
+        "import sys; import numpy as np; "
+        "from gpuar_tpu_torch.pipeline import Compressor; "
+        "real = Compressor.decode_fetch; "
+        "Compressor.decode_fetch = lambda self, h: real(self, h) ^ "
+        "np.uint8(1); "
+        "from gpuar_tpu_torch.bench import scaling; "
+        "scaling.worker(*sys.argv[1:])"))
+    with pytest.raises(RuntimeError, match="decoded file differs"):
+        scaling.run_world(1, 1 << 16, "host", tmpdir=str(tmp_path), mode="d")
+
+
+def test_scaling_emulation_and_sizing_equal_jax():
+    """``benchmarks/scaling.py``'s arithmetic: time_scale = G GiB / per-host
+    bytes, t_chip of G GiB, and the sleep super-batch
+    max(per_host // max(N, 1) // 8192, 1)."""
+    for per_host in (1 << 16, 4 << 20, 32 << 20, 12345678):
+        for n in (0, 1, 16, 100, 10_000):
+            assert scaling.sleep_super_batch(per_host, n) == \
+                max(per_host // max(n, 1) // P, 1)
+        for g in (0.01, 1.0, 2.5):
+            scale, t_chip = scaling.emulation(g, per_host, 0.4)
+            assert scale == g * (1 << 30) / per_host
+            assert t_chip == g * (1 << 30) / (0.4 * 1e9)
+
+
+def test_scaling_main_passes_the_sizing_and_keeps_the_least_wall(
+        monkeypatch, capsys):
+    """--segments-per-host and --emulate-gib reach each world as JAX
+    computes them; --reps 2 keeps the run with the least wall."""
+    calls = []
+    walls = iter([3.0, 1.0, 5.0, 2.0])
+
+    def fake(world, per_host, backend, **kw):
+        calls.append((world, per_host, backend, kw))
+        return {"world": world, "wall": next(walls), "coord": 0.1,
+                "process": 0.5, "io": 0.2, "cpu_total": 0.3}
+
+    monkeypatch.setattr(scaling, "run_world", fake)
+    out = scaling.main(["--backend", "sleep", "--mode", "d", "--worlds",
+                        "1,2", "--per-host-mib", "4", "--emulate-gib",
+                        "0.01", "--segments-per-host", "8", "--reps", "2",
+                        "--chip-gbps", "0.5"])
+    per_host = 4 << 20
+    assert [c[0] for c in calls] == [1, 1, 2, 2]
+    for _, ph, backend, kw in calls:
+        assert (ph, backend, kw["mode"]) == (per_host, "sleep", "d")
+        assert kw["sleep_sbp"] == per_host // 8 // P == 64
+        assert kw["time_scale"] == 0.01 * (1 << 30) / per_host
+        assert kw["chip_gbps"] == 0.5
+    assert [w["wall"] for w in out["worlds"]] == [1.0, 2.0]
+    assert out["emulated_gib_per_host"] == 0.01
+    t_chip = 0.01 * (1 << 30) / 0.5e9
+    assert out["worlds"][1]["projected_efficiency"] == t_chip / (t_chip + 0.1)
+    assert out["worlds"][1]["wall_efficiency"] == 0.5
+    assert "(min of 2)" in capsys.readouterr().out
+
+    calls.clear()
+    walls = iter([1.0])
+    scaling.main(["--backend", "host", "--worlds", "1"])
+    assert calls[0][3]["sleep_sbp"] == 8192 and \
+        calls[0][3]["time_scale"] == 1.0
+
+
+def test_scaling_emulate_gib_needs_the_sleep_backend():
+    with pytest.raises(SystemExit) as e:
+        scaling.main(["--backend", "host", "--emulate-gib", "1"])
+    assert e.value.code == 2
+
+
+def test_scaling_defaults_to_the_gpu_and_never_falls_back():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default backend runs")
+    with pytest.raises(SystemExit) as e:
+        scaling.main([])
+    assert e.value.code not in (0, None)
+    assert "--backend" in str(e.value.code)
+
+
+def test_sleep_time_scale_deadlines_equal_jax(monkeypatch):
+    """The deadline chain off the busy cursor, scaled, on a frozen clock."""
+    clock = [100.0]
+    monkeypatch.setattr(time, "perf_counter", lambda: clock[0])
+    ours = SleepCompressor(gbps=0.5, time_scale=256.0)
+    theirs = JaxSleep(gbps=0.5, time_scale=256.0)
+    for nbytes, step in ((P, 0.0), (3 * P + 5, 0.001), (0, 0.5),
+                         (4 << 20, 10.0)):
+        clock[0] += step
+        assert ours._deadline(nbytes) == theirs._deadline(nbytes)
+    assert ours._busy_until == theirs._busy_until > clock[0]
+
+
+def test_run_skip_e2e_has_no_file_rows(tmp_path):
+    """The corpus table alone: one packet of each corpus through the
+    kernels' plain versions on the CPU (untimed, so no rates)."""
+    out = tmp_path / "run.json"
+    rows = run.main(["--skip-e2e", "--mib", "0.001", "--out", str(out)],
+                    device=CPU)
+    assert [r["corpus"] for r in rows] == \
+        ["random", "enwik-proxy", "text", "utf8-text", "zeros"]
+    assert not any(r["corpus"].startswith("file-e2e") for r in rows)
+    assert all(r["encode_gbps"] is None for r in rows)
+    assert json.loads(out.read_text())["rows"] == rows
+
+
+@pytest.mark.gpu
+def test_gpu_scaling_decompress_on_the_card(tmp_path):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    out = scaling.main(["--backend", "gpu", "--mode", "d", "--worlds", "1,2",
+                        "--per-host-mib", "16", "--tmpdir", str(tmp_path)])
+    assert out["mode"] == "d" and set(out) == JAX_KEYS | {"card", "cards"}
+    assert [w["world"] for w in out["worlds"]] == [1, 2]

@@ -121,6 +121,46 @@ def test_native_splice_and_expand_equal_jax(row_bytes, jax_golden):
         port_native.splice_at(blob, offsets + cap, lengths)
 
 
+@pytest.mark.parametrize("size", [0, 1, P - 1, P, P + 1, 3 * P + 77])
+@pytest.mark.parametrize("kind", ["random", "zeros", "text"])
+def test_native_stream_codec_equals_jax(size, kind, jax_golden):
+    """encode_stream / decode_stream on boundary sizes: the body equals
+    the JAX package's (bytes and numpy in), and decodes back."""
+    rng = np.random.default_rng(size)
+    data = {"random": rng.integers(0, 256, size, np.uint8),
+            "zeros": np.zeros(size, np.uint8),
+            "text": np.frombuffer((b"stream of text, " * (size // 16 + 1))
+                                  [:size], np.uint8)}[kind]
+    body = port_native.encode_stream(data)
+    assert body == jax_golden.encode_stream(data)
+    assert port_native.encode_stream(data.tobytes()) == body
+    assert port_native.decode_stream(body, size) == \
+        jax_golden.decode_stream(body, size) == data.tobytes()
+    assert port_native.decode_stream(np.frombuffer(body, np.uint8),
+                                     size + 100) == data.tobytes()
+
+
+def test_native_stream_decode_errors_equal_jax(jax_golden):
+    """Its two error codes: malformed framing (-1) and an output past
+    ``out_cap`` (-2), each a ValueError with the JAX package's message."""
+    data = np.random.default_rng(3).integers(0, 256, 2 * P + 5, np.uint8)
+    body = port_native.encode_stream(data)
+    bad = bytearray(body)
+    bad[0:2] = (3).to_bytes(2, "little")        # total below the header
+    for args in ((bytes(bad), data.size), (body[:-1], data.size),
+                 (body, data.size - 1), (body, 0)):
+        with pytest.raises(ValueError) as theirs:
+            jax_golden.decode_stream(*args)
+        with pytest.raises(ValueError) as ours:
+            port_native.decode_stream(*args)
+        assert str(ours.value) == str(theirs.value)
+    assert "malformed" in str(ours.value) or "overflow" in str(ours.value)
+    with pytest.raises(ValueError, match="malformed packet framing"):
+        port_native.decode_stream(body[:-1], data.size)
+    with pytest.raises(ValueError, match="decode output overflow"):
+        port_native.decode_stream(body, data.size - 1)
+
+
 def _reference_header(raw_size: int, comp_size: int) -> bytes:
     """A header as the reference writes it: u32 sizes, garbage above."""
     raw = bytearray(port_container.FileHeader(raw_size, comp_size).to_bytes())

@@ -4,7 +4,10 @@ On the CPU, ``MeshCodec([cpu] * k)`` runs k shards with the kernels'
 plain versions; the bodies, lengths and decoded bytes must equal one
 DeviceCodec's and the JAX package's MeshCodec on the 8 virtual devices of
 ``tests/conftest.py`` (Pallas interpret mode), at 0 bytes of difference.
-The GPU-marked test runs two shards on one card.
+The synchronous stride API (``encode``, ``encode_async`` /
+``encode_wait``, ``encode_body``, ``decode``, ``decode_wait``) is held to
+the JAX MeshCodec's ``encode`` and to the async forms.  The GPU-marked test
+runs two shards on one card.
 """
 
 import io
@@ -112,6 +115,63 @@ def test_debug_flags_come_back_in_packet_order(k, batch, reference):
     bad[50, 4: lengths[15]] = rng.integers(0, 256, lengths[15] - 4, np.uint8)
     with pytest.raises(container.ContainerError, match=r"packets \[50\]"):
         mesh.decode_body_wait(mesh.decode_async(bad, sizes))
+
+
+@pytest.mark.parametrize("k", [1, 2, 3])
+def test_sync_stride_api_equals_jax(k, batch, reference):
+    """encode's first lengths[i] bytes and its lengths equal the JAX
+    MeshCodec.encode's; encode_async / encode_wait are its halves;
+    encode_body is the async body form in one call; decode gives the data
+    back as a copy, and decode_wait is decode_body_wait."""
+    from gpuar_tpu.parallel.mesh import MeshCodec as JaxMeshCodec
+
+    data, sizes = batch
+    body, lengths, packets, jbody, jlen = reference
+    mesh = MeshCodec([CPU] * k, packet_size=P)
+    got, got_len = mesh.encode(data, sizes)
+    assert got.shape == (N, mesh.stride) and got.dtype == np.uint8
+    assert got_len.dtype == np.int32
+    np.testing.assert_array_equal(got_len, jlen)
+    for i in range(N):
+        assert got[i, : got_len[i]].tobytes() == \
+            packets[i, : lengths[i]].tobytes(), f"packet {i}"
+    assert b"".join(got[i, : got_len[i]].tobytes() for i in range(N)) == \
+        jbody
+    again, again_len = mesh.encode_wait(mesh.encode_async(data, sizes))
+    np.testing.assert_array_equal(again, got)
+    np.testing.assert_array_equal(again_len, got_len)
+    eb, eb_len = mesh.encode_body(data, sizes)
+    ab, ab_len = mesh.encode_body_wait(mesh.encode_body_async(data, sizes))
+    assert eb.tobytes() == ab.tobytes() == body
+    np.testing.assert_array_equal(eb_len, ab_len)
+
+    out = mesh.decode(got, sizes)
+    np.testing.assert_array_equal(out, data)
+    before = out.copy()
+    for _ in range(2):   # both batch buffers now hold the reversed batch
+        mesh.decode(got[::-1].copy(), sizes[::-1].copy())
+    np.testing.assert_array_equal(out, before)   # a copy, not the buffer
+    assert MeshCodec.decode_wait is MeshCodec.decode_body_wait
+    np.testing.assert_array_equal(
+        mesh.decode_wait(mesh.decode_async(got, sizes)), data)
+    assert {"encode", "encode_async", "encode_wait", "encode_body",
+            "decode", "decode_wait"} <= set(dir(JaxMeshCodec))
+
+
+@pytest.mark.parametrize("k", [1, 2, 3])
+def test_sync_decode_debug_flags_in_packet_order(k, batch):
+    """mesh.decode under debug: a noise-bodied packet at index 50 (in the
+    last shard for k = 2 and 3) is reported as packet 50."""
+    data, sizes = batch
+    mesh = MeshCodec([CPU] * k, packet_size=P, debug=True)
+    packets, lengths = mesh.encode(data, sizes)
+    np.testing.assert_array_equal(mesh.decode(packets, sizes), data)
+    bad = packets.copy()
+    bad[50] = packets[15]
+    rng = np.random.default_rng(9)
+    bad[50, 4: lengths[15]] = rng.integers(0, 256, lengths[15] - 4, np.uint8)
+    with pytest.raises(container.ContainerError, match=r"packets \[50\]"):
+        mesh.decode(bad, sizes)
 
 
 @pytest.mark.parametrize("n,k", [(3, 8), (1, 2), (1, 3), (1, 8), (0, 2),
@@ -222,6 +282,36 @@ def test_gpu_two_shards_on_one_card_equal_one_codec():
     out = mesh.decode_body_wait(
         mesh.decode_blob_async(blob, roff, comp_len, raw))
     np.testing.assert_array_equal(out, data)
+    for codec in mesh.codecs:
+        counts = codec.launches()
+        assert counts["encode"] == 1 and counts["decode_debug"] == 1, counts
+
+
+@pytest.mark.gpu
+def test_gpu_sync_stride_api_on_one_card():
+    """MeshCodec.encode / decode over two shards of one card: the stride
+    packets equal one DeviceCodec's, the decode (debug) gives the data
+    back, and each shard's codec launched K1 and K3 once."""
+    from gpuar_tpu_torch.ops import _kernels
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    cuda = torch.device("cuda", 0)
+    rng = np.random.default_rng(5)
+    data = rng.integers(0, 256, (301, 8192), np.uint8)
+    data[100:200] = 0
+    sizes = np.full(301, 8192, np.int32)
+    sizes[-1] = 77
+    data[-1, 77:] = 0
+    packets, lengths = DeviceCodec(cuda).encode(data, sizes)
+    mesh = MeshCodec([cuda, cuda], debug=True)
+    _kernels.reset_counts()
+    got, got_len = mesh.encode(data, sizes)
+    np.testing.assert_array_equal(got_len, lengths)
+    for i in range(301):
+        assert got[i, : got_len[i]].tobytes() == \
+            packets[i, : lengths[i]].tobytes(), f"packet {i}"
+    np.testing.assert_array_equal(mesh.decode(got, sizes), data)
     for codec in mesh.codecs:
         counts = codec.launches()
         assert counts["encode"] == 1 and counts["decode_debug"] == 1, counts
