@@ -3,7 +3,8 @@
 
 It is the port's ``--host`` codec (``pipeline.HostCompressor``), the deep
 check of ``verify_archive``, the host splice of the GPU path
-(``splice_at``, ``expand_at``) and the stream codec of whole ``.gip``
+(``splice_at``, ``expand_at``), the decode reader's packet walk
+(``walk_packets``) and the stream codec of whole ``.gip``
 bodies (``encode_stream``, ``decode_stream``).  The library is compiled
 at first use into ``gpuar_tpu_torch/_build/`` (git-ignored), keyed by a
 hash of the source, so an edit rebuilds it.  Each build writes a
@@ -11,7 +12,8 @@ temporary file named by its process id and renames it into place, so
 processes that build at once (test workers in a fresh checkout) never see
 one another's half-written library.
 
-Every entry point of the JAX package's loader is bound, under its name.
+Every entry point of the JAX package's loader is bound, under its name;
+``walk_packets`` is the port's own.
 """
 
 from __future__ import annotations
@@ -94,6 +96,11 @@ def load() -> ctypes.CDLL:
             lib.tg_expand_at.argtypes = [u8p, long_, i64p, i32p, long_, u8p,
                                          long_]
             lib.tg_expand_at.restype = long_
+            vp = ctypes.c_void_p
+            lib.tg_walk_packets.argtypes = [vp, long_, long_, ctypes.c_int,
+                                            ctypes.c_int, vp, long_, long_,
+                                            long_, vp, vp, vp, vp]
+            lib.tg_walk_packets.restype = ctypes.c_int
             _LIB = lib
         return _LIB
 
@@ -251,3 +258,50 @@ def expand_at(body: np.ndarray, offsets: np.ndarray, lengths: np.ndarray,
     if r < 0:
         raise ValueError("expand_at: offset/length out of range")
     return blob
+
+
+# walk_packets' reasons to stop (tg_walk_packets' return value).
+WALK_FULL, WALK_PARTIAL, WALK_BAD_HEADER, WALK_OVERFLOW = range(4)
+
+
+def walk_packets(buf: np.ndarray, start: int, end: int, max_packets: int,
+                 max_raw: int, dst: np.ndarray, row_bytes: int, rows0: int,
+                 comp_len: np.ndarray, raw_sizes: np.ndarray, at: int,
+                 roff: np.ndarray | None = None):
+    """Walk the framed packets of buf[start:end] into dst, a flat uint8
+    blob of row_bytes rows (no Python per packet).
+
+    Each complete packet with a valid header (``container.
+    validate_packet_header``'s rule, max_raw the backend's packet size)
+    is copied to row ``rows0`` onward, the rest of its last row is zeroed,
+    and its row offset (into ``roff``, if given), length and raw size are
+    written at index ``at`` onward of the int32 arrays.  Stops after
+    max_packets packets (WALK_FULL), at the first packet not complete in
+    buf (WALK_PARTIAL) or at the first bad header (WALK_BAD_HEADER).
+    Returns (stop, packets, bytes consumed, rows used).
+    """
+    for name, arr, dtype in (("buf", buf, np.uint8), ("dst", dst, np.uint8),
+                             ("comp_len", comp_len, np.int32),
+                             ("raw_sizes", raw_sizes, np.int32),
+                             ("roff", roff, np.int32)):
+        if arr is not None and (arr.dtype != dtype
+                                or not arr.flags.c_contiguous):
+            raise ValueError(f"walk_packets: {name} must be C-contiguous "
+                             f"{np.dtype(dtype).name}")
+    if not 0 <= start <= end <= buf.size:
+        raise ValueError("walk_packets: start/end out of range")
+    if max_packets < 0 or at < 0 or any(
+            a is not None and at + max_packets > a.size
+            for a in (comp_len, raw_sizes, roff)):
+        raise ValueError("walk_packets: index arrays too short")
+    lib = load()
+    res = np.zeros(3, np.int64)
+    stop = lib.tg_walk_packets(
+        buf.ctypes.data + start, end - start, max_packets,
+        COMPRESSED_PACKET_SIZE, max_raw, dst.ctypes.data, dst.nbytes,
+        row_bytes, rows0, None if roff is None else roff.ctypes.data + 4 * at,
+        comp_len.ctypes.data + 4 * at, raw_sizes.ctypes.data + 4 * at,
+        res.ctypes.data)
+    if stop == WALK_OVERFLOW:
+        raise ValueError("walk_packets: destination too small")
+    return stop, int(res[0]), int(res[1]), int(res[2])

@@ -12,6 +12,7 @@
 //   tg_encode_packet / tg_decode_packet      one packet
 //   tg_encode_batch  / tg_decode_batch       fixed-stride packet batches
 //   tg_encode_stream / tg_decode_stream      back-to-back .gip packet bodies
+//   tg_walk_packets                          the decode reader's packet walk
 
 #include <cstdint>
 #include <cstring>
@@ -640,6 +641,49 @@ long tg_expand_at(const uint8_t* body, long body_len, const long* offsets,
     r += len;
   }
   return r;
+}
+
+// Walk the framed packets at the head of buf[0, len) into a row-aligned
+// blob (the decode reader's inner loop).  Each complete packet whose
+// header passes the reader's check (kHeader <= total <= max_total, raw <=
+// max_raw) is copied to row `rows` of dst (row_bytes a row, rows counted
+// from rows0), the rest of its last row is zeroed, and its row offset,
+// length and raw size go to roff, comp_len and raw_sizes (roff may be
+// null).  The walk stops after max_packets packets (returns 0), at the
+// first packet not complete in buf (1), at the first header that fails
+// the check (2), or where dst would overflow (3).  res = {packets,
+// bytes consumed, rows used}.
+int tg_walk_packets(const uint8_t* buf, long len, long max_packets,
+                    int max_total, int max_raw, uint8_t* dst, long dst_cap,
+                    long row_bytes, long rows0, int* roff, int* comp_len,
+                    int* raw_sizes, long* res) {
+  long n = 0, r = 0, rows = rows0;
+  int stop = 0;
+  while (n < max_packets) {
+    if (len - r < kHeader) { stop = 1; break; }
+    const int total = buf[r] | (buf[r + 1] << 8);
+    const int raw = buf[r + 2] | (buf[r + 3] << 8);
+    if (total < kHeader || total > max_total || raw > max_raw) {
+      stop = 2;
+      break;
+    }
+    if (len - r < total) { stop = 1; break; }
+    const long span = (total + row_bytes - 1) / row_bytes * row_bytes;
+    uint8_t* to = dst + rows * row_bytes;
+    if (rows * row_bytes + span > dst_cap) { stop = 3; break; }
+    std::memcpy(to, buf + r, static_cast<size_t>(total));
+    std::memset(to + total, 0, static_cast<size_t>(span - total));
+    if (roff) roff[n] = static_cast<int>(rows);
+    comp_len[n] = total;
+    raw_sizes[n] = raw;
+    rows += span / row_bytes;
+    r += total;
+    ++n;
+  }
+  res[0] = n;
+  res[1] = r;
+  res[2] = rows - rows0;
+  return stop;
 }
 
 // Decode a back-to-back .gip packet body of `total` bytes.  Runs of

@@ -120,9 +120,18 @@ class DeviceCodec:
             return contextlib.nullcontext()
         return torch.cuda.stream(self._stream)
 
-    def _upload(self, slot: _Slot, name: str, arr: np.ndarray):
+    def _upload(self, slot: _Slot, name: str, arr):
         """Host array -> device tensor of the same dtype and shape, through
-        the slot's pinned buffer (a copy, so read-only views are fine)."""
+        the slot's pinned buffer (a copy, so read-only views are fine).  A
+        host tensor (MeshCodec's blob buffer, filled by the reader) goes
+        up as it is, with no copy; on a CUDA device it must be pinned, or
+        the copy would be a staged, synchronous one."""
+        if isinstance(arr, torch.Tensor):
+            if not self._cuda:
+                return arr
+            if not arr.is_pinned():
+                raise ValueError(f"upload of {name!r}: host tensor not pinned")
+            return arr.to(self.device, non_blocking=True)
         arr = np.asarray(arr)
         if not self._cuda:
             return torch.from_numpy(np.array(arr, copy=True))
@@ -227,13 +236,16 @@ class DeviceCodec:
         h_out = self._download(slot, "out", out, into=into)
         return slot, self._record(slot), h_out, h_flags, comp_len
 
-    def decode_blob_async(self, blob: np.ndarray, roff: np.ndarray,
-                          comp_len: np.ndarray, raw_sizes: np.ndarray,
+    def decode_blob_async(self, blob: np.ndarray | torch.Tensor,
+                          roff: np.ndarray, comp_len: np.ndarray,
+                          raw_sizes: np.ndarray,
                           out: torch.Tensor | None = None):
         """Launch K2 (K3 under debug) on a reader-built blob: packet i's
         framed bytes start at row roff[i] (``decode_blob_geometry`` rows).
-        ``out``: a uint8 [n, packet_size] host tensor the result is
-        downloaded into (default the slot's pinned buffer)."""
+        A host tensor ``blob`` (pinned for a CUDA device) is uploaded as
+        it is, an array through the slot's pinned buffer.  ``out``: a
+        uint8 [n, packet_size] host tensor the result is downloaded into
+        (default the slot's pinned buffer)."""
         slot = self._slot()
         with self._on_stream():
             res = dec_ops.decode_blob(

@@ -13,10 +13,13 @@ results in packet order.
   of one pinned batch buffer, and one ``native.splice_at`` over that
   buffer gives the batch's ``.gip`` body.
 - Decode: shard k of the reader-built blob is its rows
-  ``roff[a_k] .. roff[b_k]``, rebased to zero.  Every shard's output is
-  downloaded straight into its rows of one pinned ``[n, packet_size]``
-  batch buffer, so the host never concatenates shards; debug flags are
-  joined in packet order and checked once.
+  ``roff[a_k] .. roff[b_k]``, rebased to zero.  The file pipeline has the
+  reader build the blob in the batch slot's host buffer (``blob_buffer``,
+  pinned for a CUDA device), so each shard uploads its slice of it with
+  no host copy; a blob from elsewhere is copied into that buffer first.
+  Every shard's output is downloaded straight into its rows of one pinned
+  ``[n, packet_size]`` batch buffer, so the host never concatenates
+  shards; debug flags are joined in packet order and checked once.
 - The JAX class's synchronous stride API (``encode``, ``encode_async`` /
   ``encode_wait``, ``encode_body``, ``decode``, ``decode_wait``) runs the
   same shards: each shard's fixed-stride packets and lengths land in its
@@ -72,6 +75,10 @@ class MeshCodec:
         pinned = any(c.device.type == "cuda" for c in self.codecs)
         self._slots = [_Slot(pinned), _Slot(pinned)]
         self._next = 0
+        # Per slot, each shard's event of the last batch that read the
+        # slot's blob buffer: waited on before the buffer is written again.
+        self._uploads: list[list] = [[], []]
+        self._handed = None  # (slot index, tensor) of the last blob_buffer
 
     def _slot(self) -> _Slot:
         # The batch buffers alternate like a DeviceCodec's: a decoded
@@ -145,29 +152,59 @@ class MeshCodec:
         return self.encode_wait(self.encode_async(data, sizes))
 
     # --- decode ------------------------------------------------------------
-    def _out(self, n: int) -> torch.Tensor:
-        return self._slot().buf("out", n * self.packet_size) \
-            .view(n, self.packet_size)
+    def _out(self, slot: _Slot, n: int) -> torch.Tensor:
+        return slot.buf("out", n * self.packet_size).view(n, self.packet_size)
+
+    def _blob_staging(self, i: int, nbytes: int) -> torch.Tensor:
+        """Slot i's blob buffer of nbytes, once every shard's batch that
+        last read it has finished."""
+        for event in self._uploads[i]:
+            DeviceCodec._wait(event)
+        self._uploads[i] = []
+        return self._slots[i].buf("blob", nbytes)
+
+    def blob_buffer(self, nbytes: int) -> np.ndarray:
+        """A flat uint8 host array of nbytes to build the next batch's blob
+        in: the blob buffer of the batch slot that the next
+        decode_blob_async takes (pinned for a CUDA device), which uploads
+        it with no copy when given its head as ``blob``."""
+        staging = self._blob_staging(self._next, nbytes)
+        self._handed = (self._next, staging)
+        return staging.numpy()
 
     def decode_blob_async(self, blob: np.ndarray, roff: np.ndarray,
                           comp_len: np.ndarray, raw_sizes: np.ndarray):
         """Launch K2 (K3 under debug) on each shard of a reader-built blob
-        (``decode_blob_geometry`` rows)."""
+        (``decode_blob_geometry`` rows).  Every shard uploads its slice of
+        the slot's blob buffer: a blob built in ``blob_buffer`` is already
+        there, any other array is copied in first."""
         n = raw_sizes.shape[0]
-        out = self._out(n)
+        i = self._next
+        slot = self._slot()
+        out = self._out(slot, n)
+        handed, self._handed = self._handed, None
+        if handed is not None and blob.ctypes.data == handed[1].data_ptr():
+            if handed[0] != i:
+                raise RuntimeError("decode_blob_async: the blob was built in "
+                                   "the other batch slot's buffer")
+            staged = handed[1][: blob.size]
+        else:
+            staged = self._blob_staging(i, blob.size)
+            staged.numpy()[:] = blob
         rb = self.row_bytes
         parts = []
         for codec, (a, b) in self._shards(n):
             r0 = int(roff[a])
             stop = int(roff[b]) * rb if b < n else None
             parts.append((codec, codec.decode_blob_async(
-                blob[r0 * rb: stop], roff[a:b] - r0, comp_len[a:b],
+                staged[r0 * rb: stop], roff[a:b] - r0, comp_len[a:b],
                 raw_sizes[a:b], out=out[a:b])))
+        self._uploads[i] = [h[1] for _, h in parts]
         return out, parts
 
     def decode_async(self, packets: np.ndarray, raw_sizes: np.ndarray):
         """Stride form: packets [n, S] uint8, split by rows."""
-        out = self._out(packets.shape[0])
+        out = self._out(self._slot(), packets.shape[0])
         return out, [(codec, codec.decode_async(packets[a:b], raw_sizes[a:b],
                                                 out=out[a:b]))
                      for codec, (a, b) in self._shards(packets.shape[0])]

@@ -86,9 +86,13 @@ class GPUCompressor(Compressor):
         return self.codec.decode_async(packets, raw_sizes)
 
     # Compacted upload: the packet reader builds the row-aligned blob
-    # straight from its block buffer and K2 reads it in place.
+    # straight from its block buffer, in the pinned buffer the upload
+    # reads, and K2 reads it in place.
     def decode_blob_geometry(self):
         return self.codec.row_bytes, BUCKET_ROWS
+
+    def decode_blob_buffer(self, nbytes: int):
+        return self.codec.blob_buffer(nbytes)
 
     def decode_submit_blob(self, blob, roff, comp_len, raw_sizes):
         return self.codec.decode_blob_async(blob, roff, comp_len, raw_sizes)

@@ -185,7 +185,9 @@ class Compressor:
             # upload path: the reader builds the row-aligned device blob
             # directly (one copy per packet), skipping the fixed-stride
             # batch and the splice/expand host passes on the submit
-            # critical path (see read_batch_blob).
+            # critical path (see read_batch_blob), in the host buffer that
+            # decode_blob_buffer hands out (GPUCompressor: the pinned one
+            # the upload reads, so no copy comes before the H2D).
             blob_geom = getattr(self, "decode_blob_geometry", None)
             pending = None  # (handle, raw_sizes)
             eof = False
@@ -193,8 +195,11 @@ class Compressor:
                 handle = None
                 if not eof and blob_geom is not None:
                     with io:
+                        geom = blob_geom()
                         batch = reader.read_batch_blob(
-                            self.super_batch_packets, *blob_geom())
+                            self.super_batch_packets, *geom,
+                            out=self.decode_blob_buffer(blob_capacity(
+                                self.super_batch_packets, *geom)))
                     if batch is not None:
                         blob, roff, comp_len, raw_sizes = batch
                         with process:
@@ -322,11 +327,25 @@ def _splice(packets: np.ndarray, lengths: np.ndarray) -> np.ndarray:
     return native.splice(packets, lengths)
 
 
+def blob_capacity(max_packets: int, row_bytes: int, bucket_rows: int) -> int:
+    """Bytes of the largest blob ``_PacketReader.read_batch_blob`` builds
+    from max_packets packets: each packet's rows at the longest packet,
+    plus a bucket of padding rows."""
+    rows_pp = -(-COMPRESSED_PACKET_SIZE // row_bytes)
+    return (max_packets * rows_pp + bucket_rows) * row_bytes
+
+
 class _PacketReader:
     """Block-buffered framed-packet reader: one read(2) per ~8 MiB
     instead of two per packet (the reference reads header-then-body per
     packet, src/gpu_compressor.cpp:299-310 — ~2.6 M syscalls on a 10 GB
-    archive; the block walk keeps the same validation)."""
+    archive; the block walk keeps the same validation).
+
+    The file is read with ``readinto`` into one reused block buffer, and
+    ``native.walk_packets`` walks its packets into the batch: no Python
+    runs per packet, only once a block.  At the end of a block the
+    partial packet (under ``COMPRESSED_PACKET_SIZE`` bytes) moves to the
+    front and the next block is read behind it."""
 
     def __init__(self, fin, block_size: int = 8 << 20,
                  max_raw: int = UNCOMPRESSED_PACKET_SIZE):
@@ -336,68 +355,85 @@ class _PacketReader:
         # configurable-packet_size backend must reject raw sizes its
         # kernels cannot decode, not just ones over the global default).
         self._max_raw = max_raw
-        self._buf = b""
-        self._pos = 0
+        self._buf = np.empty(block_size + COMPRESSED_PACKET_SIZE, np.uint8)
+        self._pos = 0   # next unread byte of _buf
+        self._end = 0   # end of the bytes read into _buf
         self._eof = False
+        self._sets = [None, None]   # see _batch_arrays
+        self._turn = 0
 
-    def _avail(self) -> int:
-        return len(self._buf) - self._pos
+    def _batch_arrays(self, max_packets: int, nbytes: int = 0):
+        """The next of two alternating sets of batch arrays: roff,
+        comp_len and raw_sizes int32 [max_packets], and a uint8 buffer of
+        at least nbytes.  A batch's arrays stay valid until two reads
+        later, so the drive loop may hold one batch pending while it reads
+        the next."""
+        s = self._sets[self._turn]
+        if s is None or s[0].size < max_packets or s[3].size < nbytes:
+            s = self._sets[self._turn] = (
+                *(np.empty(max_packets, np.int32) for _ in range(3)),
+                np.empty(nbytes, np.uint8))
+        self._turn ^= 1
+        return s
 
-    def _fill(self, need: int) -> int:
-        """Ensure `need` bytes are buffered past the cursor (or EOF);
-        returns the bytes available."""
-        if self._avail() >= need or self._eof:
-            return self._avail()
-        chunks = [self._buf[self._pos:]]
-        got = len(chunks[0])
-        while got < need:
-            blk = self._fin.read(self._block)
-            if not blk:
-                self._eof = True
-                break
-            chunks.append(blk)
-            got += len(blk)
-        self._buf = b"".join(chunks)
-        self._pos = 0
-        return len(self._buf)
+    def _refill(self) -> bool:
+        """Move the unread tail to the front and read the next block
+        behind it; False at EOF (nothing more was read)."""
+        if self._eof:
+            return False
+        tail = self._end - self._pos
+        self._buf[:tail] = self._buf[self._pos: self._end]
+        got = self._fin.readinto(
+            memoryview(self._buf)[tail: tail + self._block]) or 0
+        self._pos, self._end = 0, tail + got
+        self._eof = got == 0
+        return not self._eof
+
+    def _walk(self, max_packets: int, dst: np.ndarray, row_bytes: int,
+              comp_len: np.ndarray, raw_sizes: np.ndarray,
+              roff: np.ndarray | None = None) -> tuple[int, int]:
+        """Walk up to max_packets packets into dst (``native.
+        walk_packets``), refilling the block buffer as the walk needs;
+        returns (packets, rows used).  Faults raise the ContainerError of
+        a per-packet walk, with its text."""
+        count = rows = 0
+        while count < max_packets:
+            stop, n, used, r = native.walk_packets(
+                self._buf, self._pos, self._end, max_packets - count,
+                self._max_raw, dst, row_bytes, rows, comp_len, raw_sizes,
+                count, roff)
+            count, rows, self._pos = count + n, rows + r, self._pos + used
+            if stop == native.WALK_BAD_HEADER:
+                total, raw = container.packet_sizes(
+                    self._buf[self._pos: self._pos + PACKET_HEADER_LENGTH])
+                container.validate_packet_header(total, raw, self._max_raw)
+                raise RuntimeError("walk_packets refused a valid header")
+            if stop == native.WALK_PARTIAL and not self._refill():
+                have = self._end - self._pos
+                if have == 0:
+                    break
+                raise container.ContainerError(
+                    "Incorrect file format: truncated packet "
+                    + ("header" if have < PACKET_HEADER_LENGTH else "body"))
+        return count, rows
 
     def read_batch(self, max_packets: int):
         """Up to max_packets framed packets as a fixed-stride batch.
 
         Returns (packets [p, COMPRESSED_PACKET_SIZE] uint8, raw_sizes [p])
-        or (None, None) at EOF.
+        or (None, None) at EOF, valid until two reads later.
         """
-        packets = np.zeros((max_packets, COMPRESSED_PACKET_SIZE),
-                           dtype=np.uint8)
-        raw_sizes = np.zeros(max_packets, dtype=np.int32)
-        count = 0
-        while count < max_packets:
-            have = self._fill(PACKET_HEADER_LENGTH)
-            if have == 0:
-                break
-            if have < PACKET_HEADER_LENGTH:
-                raise container.ContainerError(
-                    "Incorrect file format: truncated packet header"
-                )
-            total, raw = container.packet_sizes(
-                self._buf[self._pos: self._pos + PACKET_HEADER_LENGTH]
-            )
-            container.validate_packet_header(total, raw, self._max_raw)
-            if self._fill(total) < total:
-                raise container.ContainerError(
-                    "Incorrect file format: truncated packet body"
-                )
-            packets[count, :total] = np.frombuffer(
-                self._buf, np.uint8, total, self._pos)
-            raw_sizes[count] = raw
-            self._pos += total
-            count += 1
+        _, comp_len, raw_sizes, packets = self._batch_arrays(
+            max_packets, max_packets * COMPRESSED_PACKET_SIZE)
+        count, _ = self._walk(max_packets, packets, COMPRESSED_PACKET_SIZE,
+                              comp_len, raw_sizes)
         if count == 0:
             return None, None
-        return packets[:count], raw_sizes[:count]
+        return (packets[: count * COMPRESSED_PACKET_SIZE]
+                .reshape(count, COMPRESSED_PACKET_SIZE), raw_sizes[:count])
 
     def read_batch_blob(self, max_packets: int, row_bytes: int,
-                        bucket_rows: int):
+                        bucket_rows: int, out: np.ndarray | None = None):
         """Up to max_packets framed packets as a compacted upload blob.
 
         No fixed-stride batch and no whole-body host pass: each packet's
@@ -406,47 +442,31 @@ class _PacketReader:
         place at per-packet offsets.  Mirrors the reference's overlapped
         fill/drain intent (src/gpu_compressor.cpp:287-343).
 
+        ``out``: a flat uint8 array of at least ``blob_capacity`` bytes
+        to build the blob in (the codec's pinned upload buffer, reused
+        batch after batch); by default a new array.  Every byte of the
+        blob is written, so stale bytes in ``out`` never show.
+
         Returns (blob [kb*row_bytes] uint8 with kb a bucket_rows
-        multiple, row_offsets [p] i32, comp_len [p] i32, raw_sizes [p]
-        i32) or None at EOF.  Validation matches read_batch.
+        multiple, a view of ``out``'s head when given, row_offsets [p]
+        i32, comp_len [p] i32, raw_sizes [p] i32) or None at EOF; the
+        three index arrays are valid until two reads later.  Validation
+        matches read_batch.
         """
-        rows_pp = -(-COMPRESSED_PACKET_SIZE // row_bytes)
-        cap_rows = max_packets * rows_pp + bucket_rows
-        blob = np.zeros(cap_rows * row_bytes, dtype=np.uint8)
-        roff = np.zeros(max_packets, dtype=np.int32)
-        comp_len = np.zeros(max_packets, dtype=np.int32)
-        raw_sizes = np.zeros(max_packets, dtype=np.int32)
-        count = 0
-        rows = 0
-        while count < max_packets:
-            have = self._fill(PACKET_HEADER_LENGTH)
-            if have == 0:
-                break
-            if have < PACKET_HEADER_LENGTH:
-                raise container.ContainerError(
-                    "Incorrect file format: truncated packet header"
-                )
-            total, raw = container.packet_sizes(
-                self._buf[self._pos: self._pos + PACKET_HEADER_LENGTH]
-            )
-            container.validate_packet_header(total, raw, self._max_raw)
-            if self._fill(total) < total:
-                raise container.ContainerError(
-                    "Incorrect file format: truncated packet body"
-                )
-            start = rows * row_bytes
-            blob[start: start + total] = np.frombuffer(
-                self._buf, np.uint8, total, self._pos)
-            roff[count] = rows
-            comp_len[count] = total
-            raw_sizes[count] = raw
-            rows += -(-total // row_bytes)
-            self._pos += total
-            count += 1
+        cap = blob_capacity(max_packets, row_bytes, bucket_rows)
+        if out is None:
+            out = np.empty(cap, np.uint8)
+        elif out.size < cap:
+            raise ValueError(f"out holds {out.size} B, the batch needs "
+                             f"{cap}")
+        roff, comp_len, raw_sizes, _ = self._batch_arrays(max_packets)
+        count, rows = self._walk(max_packets, out, row_bytes, comp_len,
+                                 raw_sizes, roff)
         if count == 0:
             return None
         kb = -(-max(rows, 1) // bucket_rows) * bucket_rows
-        return (blob[: kb * row_bytes], roff[:count], comp_len[:count],
+        out[rows * row_bytes: kb * row_bytes] = 0
+        return (out[: kb * row_bytes], roff[:count], comp_len[:count],
                 raw_sizes[:count])
 
 

@@ -258,6 +258,143 @@ def test_packet_reader_blob_equals_jax(tmp_path, row_bytes, bucket_rows,
             8192, row_bytes, bucket_rows)
 
 
+def _batches(reader, method, args, **kw):
+    """Every batch a reader gives, to the end of the body."""
+    out = []
+    while True:
+        got = getattr(reader, method)(*args, **kw)
+        if got is None or got[0] is None:
+            return out
+        out.append(tuple(np.array(x, copy=True) for x in got))
+
+
+def _assert_same_batches(mine, theirs):
+    assert len(mine) == len(theirs) > 0
+    for a, b in zip(mine, theirs):
+        assert len(a) == len(b)
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x, y)
+
+
+@pytest.mark.parametrize("max_packets", [1, 3, 8192])
+@pytest.mark.parametrize("block_size", [100, 5000, 8 << 20])
+@pytest.mark.parametrize("method", ["read_batch_blob", "read_batch"])
+def test_packet_walk_equals_jax(tmp_path, method, block_size, max_packets,
+                                jax_golden):
+    """The native packet walk gives the JAX reader's batches, batch by
+    batch, whether a packet straddles blocks of 100 B, 5000 B or none."""
+    from gpuar_tpu.pipeline import _PacketReader as JaxReader
+
+    raw = np.frombuffer(_mixed_file(tmp_path / "in.bin", 0x4054,
+                                    9 * P + 777), np.uint8)
+    body = jax_golden.encode_stream(raw)
+    args = (max_packets, 96, 4096) if method == "read_batch_blob" \
+        else (max_packets,)
+    _assert_same_batches(
+        _batches(port_pipeline._PacketReader(io.BytesIO(body),
+                                             block_size=block_size),
+                 method, args),
+        _batches(JaxReader(io.BytesIO(body), block_size=block_size),
+                 method, args))
+
+
+@pytest.mark.parametrize("row_bytes,bucket_rows,max_packets",
+                         [(96, 4096, 3), (96, 64, 2), (128, 7, 3)])
+def test_packet_reader_reused_destination_equals_jax(
+        tmp_path, row_bytes, bucket_rows, max_packets, jax_golden):
+    """A caller's destination, filled with 0xFF and reused for every
+    batch, holds blobs byte-equal to the JAX reader's zeroed ones: each
+    packet's last row and the bucket's tail rows are zeroed."""
+    from gpuar_tpu.pipeline import _PacketReader as JaxReader
+
+    raw = np.frombuffer(_mixed_file(tmp_path / "in.bin", 0x4055,
+                                    9 * P + 777), np.uint8)
+    body = jax_golden.encode_stream(raw)
+    out = np.full(port_pipeline.blob_capacity(max_packets, row_bytes,
+                                              bucket_rows), 0xFF, np.uint8)
+    args = (max_packets, row_bytes, bucket_rows)
+    mine = _batches(port_pipeline._PacketReader(io.BytesIO(body),
+                                                block_size=5000),
+                    "read_batch_blob", args, out=out)
+    assert len(mine) >= 3
+    _assert_same_batches(
+        mine, _batches(JaxReader(io.BytesIO(body), block_size=5000),
+                       "read_batch_blob", args))
+    with pytest.raises(ValueError, match="needs"):
+        port_pipeline._PacketReader(io.BytesIO(body)).read_batch_blob(
+            *args, out=out[:-1])
+
+
+@pytest.mark.parametrize("bad", ["dst_strided", "comp_len_int64",
+                                 "end_past_buf", "arrays_short"])
+def test_walk_packets_rejects_bad_arguments(bad):
+    """native.walk_packets checks its buffers before it passes pointers."""
+    buf = np.frombuffer(port_native.encode_stream(np.zeros(3 * P, np.uint8)),
+                        np.uint8).copy()
+    kw = dict(buf=buf, start=0, end=buf.size, max_packets=3, max_raw=P,
+              dst=np.empty(3 * 96 * 91, np.uint8), row_bytes=96, rows0=0,
+              comp_len=np.empty(3, np.int32), raw_sizes=np.empty(3, np.int32),
+              at=0)
+    stop, n, used, rows = port_native.walk_packets(**kw)
+    assert (stop, n, used) == (port_native.WALK_FULL, 3, buf.size)
+    if bad == "dst_strided":
+        kw["dst"] = np.empty(2 * 3 * 96 * 91, np.uint8)[::2]
+    elif bad == "comp_len_int64":
+        kw["comp_len"] = np.empty(3, np.int64)
+    elif bad == "end_past_buf":
+        kw["end"] = buf.size + 1
+    else:
+        kw["at"] = 1
+    with pytest.raises(ValueError, match="walk_packets"):
+        port_native.walk_packets(**kw)
+
+
+def _faulty_body(fault: str) -> bytes:
+    """Three good packets of 4096 raw bytes, then a fourth that breaks as
+    the fault says (of 8192 raw bytes for "raw_over_max")."""
+    rng = np.random.default_rng(0x4056)
+    body = bytearray(port_native.encode_stream(
+        rng.integers(0, 256, 3 * 4096, np.uint8), packet_size=4096))
+    at = len(body)
+    body += port_native.encode_packet(rng.integers(
+        0, 256, 8192 if fault == "raw_over_max" else 4096,
+        np.uint8).tobytes())
+    if fault == "total_under_4":
+        body[at: at + 2] = (3).to_bytes(2, "little")
+    elif fault == "total_over_8704":
+        body[at: at + 2] = (8705).to_bytes(2, "little")
+    elif fault == "cut_in_header":
+        del body[at + 2:]
+    elif fault == "cut_in_body":
+        del body[at + 100:]
+    return bytes(body)
+
+
+@pytest.mark.parametrize("block_size", [100, 8 << 20])
+@pytest.mark.parametrize("method", ["read_batch_blob", "read_batch"])
+@pytest.mark.parametrize("fault", ["total_under_4", "total_over_8704",
+                                   "raw_over_max", "cut_in_header",
+                                   "cut_in_body"])
+def test_packet_reader_faults_equal_jax(fault, method, block_size):
+    """Each header fault and each cut raises the JAX reader's
+    ContainerError, with its text, at a backend packet_size of 4096."""
+    from gpuar_tpu.container import ContainerError as JaxError
+    from gpuar_tpu.pipeline import _PacketReader as JaxReader
+
+    body = _faulty_body(fault)
+    args = (2, 96, 64) if method == "read_batch_blob" else (2,)
+    texts = []
+    for reader, error in ((port_pipeline._PacketReader,
+                           port_container.ContainerError),
+                          (JaxReader, JaxError)):
+        with pytest.raises(error) as e:
+            _batches(reader(io.BytesIO(body), block_size=block_size,
+                            max_raw=4096), method, args)
+        texts.append(str(e.value))
+    assert texts[0] == texts[1]
+    assert ("truncated" in texts[0]) == fault.startswith("cut")
+
+
 @pytest.mark.parametrize("cut", ["none", "mid_packet", "header_only"])
 @pytest.mark.parametrize("deep", [False, True])
 def test_verify_archive_agrees_with_jax(tmp_path, cut, deep):

@@ -20,7 +20,7 @@ from gpuar_tpu_torch import container
 from gpuar_tpu_torch.parallel.codec import BUCKET_ROWS, DeviceCodec
 from gpuar_tpu_torch.parallel.mesh import MeshCodec, shard_bounds
 from gpuar_tpu_torch.parallel.runner import GPUCompressor
-from gpuar_tpu_torch.pipeline import _PacketReader
+from gpuar_tpu_torch.pipeline import _PacketReader, blob_capacity
 from test_torch_host import jax_native
 
 CPU = torch.device("cpu")
@@ -95,6 +95,29 @@ def test_decode_blob_and_stride_forms(k, batch, reference):
     np.testing.assert_array_equal(out, data)
     out = mesh.decode_body_wait(mesh.decode_async(packets, sizes))
     np.testing.assert_array_equal(out, data)
+
+
+@pytest.mark.parametrize("k", [1, 3])
+def test_decode_blob_built_in_blob_buffer(k, batch, reference):
+    """A blob the reader builds in blob_buffer decodes over two batches in
+    flight; one built in a slot that another submit has since taken is
+    refused, not silently copied."""
+    data, _ = batch
+    body = reference[0]
+    mesh = MeshCodec([CPU] * k, packet_size=P)
+    cap = blob_capacity(N, mesh.row_bytes, BUCKET_ROWS)
+    handles = []
+    for _ in range(2):
+        reader = _PacketReader(io.BytesIO(body), max_raw=P)
+        handles.append(mesh.decode_blob_async(*reader.read_batch_blob(
+            N, mesh.row_bytes, BUCKET_ROWS, out=mesh.blob_buffer(cap))))
+    for h in handles:
+        np.testing.assert_array_equal(mesh.decode_body_wait(h), data)
+    batch_blob = _PacketReader(io.BytesIO(body), max_raw=P).read_batch_blob(
+        N, mesh.row_bytes, BUCKET_ROWS, out=mesh.blob_buffer(cap))
+    mesh.decode_body_wait(mesh.decode_async(reference[2], batch[1]))
+    with pytest.raises(RuntimeError, match="other batch slot"):
+        mesh.decode_blob_async(*batch_blob)
 
 
 @pytest.mark.parametrize("k", [1, 2, 3, 8])

@@ -239,6 +239,71 @@ def test_gpu_main_path_matches_host(cuda, tmp_path):
     assert min(_kernels.LAUNCHES.values()) > 0
 
 
+def _record_blob_uploads(monkeypatch):
+    """Patch DeviceCodec._upload to record each blob it uploads: (is it a
+    host tensor, is it pinned)."""
+    from gpuar_tpu_torch.parallel.codec import DeviceCodec
+
+    seen, upload = [], DeviceCodec._upload
+
+    def recording(self, slot, name, arr):
+        if name == "blob":
+            seen.append((isinstance(arr, torch.Tensor),
+                         isinstance(arr, torch.Tensor) and arr.is_pinned()))
+        return upload(self, slot, name, arr)
+
+    monkeypatch.setattr(DeviceCodec, "_upload", recording)
+    return seen
+
+
+def _three_batch_file(tmp_path):
+    """Five packets, two of text and the last ragged, and their host
+    archive: three super-batches of up to two packets."""
+    data = np.random.default_rng(0x4057).integers(0, 256, 4 * P + 999,
+                                                  np.uint8)
+    data[P: 3 * P] = np.frombuffer(
+        (b"the quick brown fox jumps over the lazy dog. " * 400)[: 2 * P],
+        np.uint8)
+    src = tmp_path / "in.bin"
+    src.write_bytes(data.tobytes())
+    ref = tmp_path / "host.gip"
+    HostCompressor().compress(src, ref)
+    return data.tobytes(), src, ref
+
+
+def test_decompress_builds_blob_in_upload_buffer(tmp_path, monkeypatch):
+    """Over three super-batches, GPUCompressor on two CPU shards writes the
+    host archive and decodes it to the host's output; every shard's blob
+    is uploaded from the slot's buffer the reader built it in, not
+    copied."""
+    from gpuar_tpu_torch.pipeline import HostCompressor as PortHost
+
+    data, src, ref = _three_batch_file(tmp_path)
+    gpu = GPUCompressor(devices=[CPU, CPU], super_batch_packets=2)
+    gpu.compress(src, tmp_path / "gpu.gip")
+    assert (tmp_path / "gpu.gip").read_bytes() == ref.read_bytes()
+    seen = _record_blob_uploads(monkeypatch)
+    gpu.decompress(ref, tmp_path / "back.bin")
+    PortHost(super_batch_packets=2).decompress(ref, tmp_path / "host.bin")
+    assert (tmp_path / "back.bin").read_bytes() == data
+    assert (tmp_path / "host.bin").read_bytes() == data
+    assert seen == [(True, False)] * 5   # 2 + 2 + 1 packets
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shards", [1, 2])
+def test_gpu_decompress_uploads_pinned_blob(cuda, tmp_path, monkeypatch,
+                                            shards):
+    """On the card, over three super-batches, decompress round-trips and
+    each shard uploads a pinned tensor (two shards share the one card)."""
+    data, src, ref = _three_batch_file(tmp_path)
+    seen = _record_blob_uploads(monkeypatch)
+    GPUCompressor(devices=[cuda] * shards, super_batch_packets=2) \
+        .decompress(ref, tmp_path / "back.bin")
+    assert (tmp_path / "back.bin").read_bytes() == data
+    assert seen == [(True, True)] * (1 + 2 * shards)
+
+
 def test_compacted_body_path_matches_stride_path(rng):
     """DeviceCodec's compacted encode (device row gather + splice_at) gives
     exactly the stride path's spliced bytes, and the stride decode and the
