@@ -85,8 +85,13 @@ exit, no result line):
     python3 chip_smoke.py --profile
 
 also profiles one warm compress and decompress after phase 4: the
-device's busy share and time per kernel (torch.profiler) and the host
-functions with the most self time (cProfile).
+device's busy share and time per kernel (torch.profiler), the host
+functions with the most self time and every ``np.copyto`` by caller
+(cProfile); then one more of each with its stages timed, no profiler on
+(``stage_profile``: read, the wait for the upload buffer, submit, the
+batch's device work by CUDA events, fetch, splice or walk, write); and
+the splice of the three super-batches into a fresh array, a reused
+buffer and in place (``splice_choice``).
 
     python3 chip_smoke.py --parallel
 
@@ -111,6 +116,7 @@ processes or shards sharing the cards, not a scaling figure.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import hashlib
 import io
 import json
@@ -122,6 +128,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import torch
@@ -812,6 +819,198 @@ def profile_main_path(card, gpu, src) -> None:
         print(f"[{card}] profile {name} host self time: " + "; ".join(
             f"{Path(f).name}:{line}({fn}) {tt:.6f} s x{nc}"
             for (f, line, fn), (_, nc, tt, _, _) in top), flush=True)
+        # Every np.copyto, by caller: on the file compress only the
+        # sizes' small copy is left under _upload, not the raw batch's.
+        copies = [f"{Path(cf).name}:{cl}({cfn}) {ctt:.6f} s x{cnc}"
+                  for (f, line, fn), (_, _, _, _, callers) in stats.items()
+                  if "copyto" in fn
+                  for (cf, cl, cfn), (cnc, _, ctt, _) in callers.items()]
+        print(f"[{card}] profile {name} np.copyto by caller: "
+              + ("; ".join(copies) or "none"), flush=True)
+
+
+class _StageClock:
+    """Seconds by stage of one run: host stages by the host clock around
+    the call that does them, device stages by CUDA events recorded on the
+    codec's stream before and after the call that enqueues them."""
+
+    def __init__(self):
+        self.host: dict[str, list] = {}
+        self.events: dict[str, list] = {}
+
+    @contextlib.contextmanager
+    def span(self, stage: str):
+        t = time.perf_counter()
+        try:
+            yield
+        finally:
+            acc = self.host.setdefault(stage, [0.0, 0])
+            acc[0] += time.perf_counter() - t
+            acc[1] += 1
+
+    def host_stage(self, owner, attr: str, stage: str):
+        fn = getattr(owner, attr)
+
+        def timed_call(*args, **kw):
+            with self.span(stage):
+                return fn(*args, **kw)
+        return mock.patch.object(owner, attr, timed_call)
+
+    def device_stage(self, owner, attr: str, stage: str):
+        fn = getattr(owner, attr)
+
+        def timed_call(codec, *args, **kw):
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record(codec._stream)
+            out = fn(codec, *args, **kw)
+            end.record(codec._stream)
+            self.events.setdefault(stage, []).append((start, end))
+            return out
+        return mock.patch.object(owner, attr, timed_call)
+
+    def timed_open(self):
+        """``open`` for the pipeline module: its files' readinto and read
+        count as the read stage, their write as the write stage."""
+        clock = self
+
+        class TimedFile:
+            def __init__(self, f):
+                self._f = f
+
+            def readinto(self, b):
+                with clock.span("read"):
+                    return self._f.readinto(b)
+
+            def read(self, *args):
+                with clock.span("read"):
+                    return self._f.read(*args)
+
+            def write(self, b):
+                with clock.span("write"):
+                    return self._f.write(b)
+
+            def __getattr__(self, name):
+                return getattr(self._f, name)
+
+            def __enter__(self):
+                return self
+
+            def __exit__(self, *exc):
+                self._f.close()
+
+        return lambda *args, **kw: TimedFile(open(*args, **kw))
+
+    def line(self, wall: float, order: list[str]) -> str:
+        torch.cuda.synchronize()
+        parts, host = [], 0.0
+        for stage in order:
+            if stage in self.events:
+                ev = self.events[stage]
+                sec = sum(a.elapsed_time(b) for a, b in ev) / 1e3
+                parts.append(f"{stage} {sec:.6f} s x{len(ev)} (CUDA events)")
+            else:
+                sec, n = self.host.get(stage, (0.0, 0))
+                host += sec
+                parts.append(f"{stage} {sec:.6f} s x{n}")
+        return (f"wall {wall:.6f} s; " + ", ".join(parts)
+                + f"; host rest {wall - host:.6f} s")
+
+
+COMPRESS_STAGES = ["read", "buffer wait", "submit", "H2D + K1 + compaction",
+                   "fetch", "splice", "write"]
+DECOMPRESS_STAGES = ["read", "walk", "buffer wait", "submit",
+                     "H2D + K2 + D2H", "fetch", "write"]
+
+
+def stage_profile(card, gpu, src) -> None:
+    """One more warm compress and decompress with each stage timed
+    (``_StageClock``, no profiler): the file's read, the wait for the
+    slot's upload buffer, the submit's host time, the batch's device work
+    by CUDA events on the codec's stream (the upload, the kernel, the
+    compaction or the download), the fetch, the splice or the reader's
+    walk, and the write.  Host stages are disjoint; the device stage
+    overlaps them, and the host rest is the wall not in a host stage."""
+    from gpuar_tpu_torch import native, pipeline
+    from gpuar_tpu_torch.parallel.codec import DeviceCodec
+    from gpuar_tpu_torch.parallel.mesh import MeshCodec
+
+    runs = (("compress", COMPRESS_STAGES,
+             [("host", type(gpu), "encode_submit", "submit"),
+              ("device", DeviceCodec, "encode_body_async",
+               "H2D + K1 + compaction"),
+              ("host", DeviceCodec, "fetch_blob", "fetch"),
+              ("host", native, "splice_at", "splice")],
+             lambda: gpu.compress(src, WORK / "stage.gip")),
+            ("decompress", DECOMPRESS_STAGES,
+             [("host", native, "walk_packets", "walk"),
+              ("host", type(gpu), "decode_submit_blob", "submit"),
+              ("device", DeviceCodec, "decode_blob_async", "H2D + K2 + D2H"),
+              ("host", MeshCodec, "decode_body_wait", "fetch")],
+             lambda: gpu.decompress(WORK / "stage.gip", WORK / "stage.bin")))
+    for name, order, hooks, run in runs:
+        clock = _StageClock()
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(mock.patch.object(
+                pipeline, "open", clock.timed_open(), create=True))
+            stack.enter_context(clock.host_stage(MeshCodec, "_staging",
+                                                 "buffer wait"))
+            for kind, owner, attr, stage in hooks:
+                hook = clock.device_stage if kind == "device" \
+                    else clock.host_stage
+                stack.enter_context(hook(owner, attr, stage))
+            t = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        print(f"[{card}] stages {name}: {clock.line(wall, order)}",
+              flush=True)
+    if md5(WORK / "stage.bin") != md5(src):
+        raise AssertionError("the stage-timed run does not round-trip")
+
+
+def splice_choice(card, src) -> None:
+    """The splice of the main path's three super-batches three ways, on
+    the blob K1 and the compaction leave in the pinned download buffer:
+    into a fresh array (the parent's), into a reused host buffer, and in
+    place in the pinned buffer itself (the drive loop's); 5 interleaved
+    rounds, the median and range of each."""
+    from gpuar_tpu_torch import native
+    from gpuar_tpu_torch.parallel.codec import DeviceCodec
+
+    codec = DeviceCodec(torch.device("cuda", 0))
+    raw = np.fromfile(src, np.uint8)
+    times: dict[str, list[float]] = {"fresh": [], "reused": [],
+                                     "in place": []}
+    work = torch.empty(8192 * codec.stride, dtype=torch.uint8,
+                       pin_memory=True).numpy()
+    reused = np.zeros_like(work)
+    for _ in range(5):
+        per = dict.fromkeys(times, 0.0)
+        for b in range(3):
+            data, sizes = main_path_batch(raw, b)
+            blob, offs, lens = codec.fetch_blob(
+                codec.encode_body_async(data, sizes))
+            want = native.splice_at(blob, offs, lens)
+            view = work[: blob.size]
+            view[:] = blob
+            for way, call in (
+                    ("fresh", lambda: native.splice_at(blob, offs, lens)),
+                    ("reused", lambda: native.splice_at(
+                        blob, offs, lens, out=reused)),
+                    ("in place", lambda: native.splice_at(
+                        view, offs, lens, out=view))):
+                t = time.perf_counter()
+                got = call()
+                per[way] += time.perf_counter() - t
+                if not np.array_equal(got, want):
+                    raise AssertionError(f"splice {way} differs")
+        for way, sec in per.items():
+            times[way].append(sec)
+    print(f"[{card}] splice of the 3 super-batches (5 rounds): " + "; ".join(
+        f"{way} median {float(np.median(v)):.6f} s "
+        f"[{min(v):.6f}, {max(v):.6f}]" for way, v in times.items()),
+        flush=True)
 
 
 def main_path_batch(raw: np.ndarray, b: int):
@@ -1409,6 +1608,8 @@ def main() -> int:
             gpu, launches = phase4(CARD, src)
             if opts.profile:
                 profile_main_path(CARD, gpu, src)
+                stage_profile(CARD, gpu, src)
+                splice_choice(CARD, src)
             times = phase5(CARD, dev, src, errs)
             del gpu
         phase6(CARD, src, errs)

@@ -226,20 +226,33 @@ def splice(rows: np.ndarray, lengths: np.ndarray) -> np.ndarray:
     return out[:w]
 
 
-def splice_at(blob: np.ndarray, offsets: np.ndarray,
-              lengths: np.ndarray) -> np.ndarray:
+def splice_at(blob: np.ndarray, offsets: np.ndarray, lengths: np.ndarray,
+              out: np.ndarray | None = None) -> np.ndarray:
     """Concatenate blob[offsets[i] : offsets[i]+lengths[i]]: strips the
-    row padding of a device-compacted encode blob -> uint8."""
+    row padding of a device-compacted encode blob -> uint8.
+
+    ``out``: a flat C-contiguous uint8 array to splice into (default a
+    new one); the result is a view of its head.  It may be ``blob``
+    itself: in place, every packet's output must start at or before its
+    source, as it does in a blob of packets laid out in order."""
     lib = load()
     blob = np.ascontiguousarray(blob, dtype=np.uint8).reshape(-1)
     offsets = np.ascontiguousarray(offsets, dtype=np.int64)
     lengths = np.ascontiguousarray(lengths, dtype=np.int32)
-    out = np.empty(int(lengths.sum()), dtype=np.uint8)
+    total = int(lengths.sum())
+    if out is None:
+        out = np.empty(total, dtype=np.uint8)
+    elif (out.dtype != np.uint8 or out.ndim != 1
+          or not out.flags.c_contiguous or not out.flags.writeable
+          or out.size < total):
+        raise ValueError(f"splice_at: out must be a writable flat uint8 "
+                         f"array of at least {total} B")
     w = lib.tg_splice_at(_u8p(blob), blob.size, _i64p(offsets),
                          _i32p(lengths), lengths.shape[0], _u8p(out),
                          out.size)
     if w < 0:
-        raise ValueError("splice_at: offset/length out of range")
+        raise ValueError("splice_at: offset/length out of range, or a "
+                         "packet's output past its source in place")
     return out[:w]
 
 

@@ -611,16 +611,24 @@ long tg_splice(const uint8_t* rows, long stride, const int* lengths,
 
 // Splice from a compacted blob: packet i's bytes live at byte offset
 // offsets[i] (device-side row compaction leaves packets at aligned
-// starts with a little inter-packet padding; this strips it).
+// starts with a little inter-packet padding; this strips it).  out may
+// overlap the blob (the in-place splice of a row-aligned blob): then
+// each packet's output must start at or before its source, so no write
+// reaches bytes a later packet has yet to read, and memmove takes the
+// overlap within a packet.
 long tg_splice_at(const uint8_t* blob, long blob_len, const long* offsets,
                   const int* lengths, long n, uint8_t* out, long out_cap) {
+  const uintptr_t b0 = reinterpret_cast<uintptr_t>(blob);
+  const uintptr_t o0 = reinterpret_cast<uintptr_t>(out);
+  const bool overlap = o0 < b0 + blob_len && b0 < o0 + out_cap;
   long w = 0;
   for (long i = 0; i < n; ++i) {
     const long len = lengths[i];
     if (len < 0 || offsets[i] < 0 || offsets[i] + len > blob_len ||
         w + len > out_cap)
       return -1;
-    std::memcpy(out + w, blob + offsets[i], static_cast<size_t>(len));
+    if (overlap && o0 + w > b0 + offsets[i]) return -1;
+    std::memmove(out + w, blob + offsets[i], static_cast<size_t>(len));
     w += len;
   }
   return w;

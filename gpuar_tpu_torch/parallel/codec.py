@@ -123,9 +123,9 @@ class DeviceCodec:
     def _upload(self, slot: _Slot, name: str, arr):
         """Host array -> device tensor of the same dtype and shape, through
         the slot's pinned buffer (a copy, so read-only views are fine).  A
-        host tensor (MeshCodec's blob buffer, filled by the reader) goes
-        up as it is, with no copy; on a CUDA device it must be pinned, or
-        the copy would be a staged, synchronous one."""
+        host tensor (MeshCodec's data or blob buffer, filled from the
+        file) goes up as it is, with no copy; on a CUDA device it must be
+        pinned, or the copy would be a staged, synchronous one."""
         if isinstance(arr, torch.Tensor):
             if not self._cuda:
                 return arr
@@ -169,9 +169,12 @@ class DeviceCodec:
             event.synchronize()
 
     # --- encode ------------------------------------------------------------
-    def encode_body_async(self, data: np.ndarray, sizes: np.ndarray):
+    def encode_body_async(self, data: np.ndarray | torch.Tensor,
+                          sizes: np.ndarray):
         """Launch K1 on padded raw packets [n, packet_size] and the device
-        compaction; returns a handle for encode_body_wait."""
+        compaction; returns a handle for encode_body_wait.  A host tensor
+        ``data`` (pinned for a CUDA device) is uploaded as it is, an array
+        through the slot's pinned buffer."""
         n = data.shape[0]
         slot = self._slot()
         with self._on_stream():

@@ -46,7 +46,7 @@ from gpuar_tpu_torch.config import (
     PACKET_HEADER_LENGTH,
     UNCOMPRESSED_PACKET_SIZE,
 )
-from gpuar_tpu_torch.pipeline import _splice
+from gpuar_tpu_torch.pipeline import _splice, read_into
 from gpuar_tpu_torch.utils.stats import (
     CompressionInfo,
     ProgressMonitor,
@@ -314,14 +314,15 @@ class DistributedCompressor:
             while todo > 0 or pending is not None:
                 handle = None
                 if todo > 0:
+                    want = min(batch, todo)
                     with io:
-                        chunk = fin.read(min(batch, todo))
-                    todo -= len(chunk)
-                    if chunk:
+                        buf = self.backend.encode_buffer(want)
+                        got = read_into(fin, buf[:want])
+                    todo -= got
+                    if got:
                         with process:
-                            raw = np.frombuffer(chunk, dtype=np.uint8)
-                            handle = (self.backend.encode_submit(raw),
-                                      len(chunk))
+                            handle = (self.backend.encode_submit(buf[:got]),
+                                      got)
                     else:
                         todo = 0
                 if pending is not None:

@@ -9,9 +9,14 @@ within one packet, and each shard goes to the DeviceCodec of its device
 the devices never exchange data: the host splits each batch and joins the
 results in packet order.
 
-- Encode: every shard's compacted blob is downloaded into its byte range
-  of one pinned batch buffer, and one ``native.splice_at`` over that
-  buffer gives the batch's ``.gip`` body.
+- Encode: shard k is the batch's rows ``a_k .. b_k``.  The file pipeline
+  reads the batch into the batch slot's ``[n, packet_size]`` host buffer
+  (``encode_buffer``, pinned for a CUDA device), so each shard uploads
+  its rows of it with no host copy; an array from elsewhere is copied
+  into that buffer first.  Every shard's compacted blob is downloaded
+  into its byte range of one pinned batch buffer, and one
+  ``native.splice_at`` in place over that buffer gives the batch's
+  ``.gip`` body.
 - Decode: shard k of the reader-built blob is its rows
   ``roff[a_k] .. roff[b_k]``, rebased to zero.  The file pipeline has the
   reader build the blob in the batch slot's host buffer (``blob_buffer``,
@@ -20,6 +25,11 @@ results in packet order.
   Every shard's output is downloaded straight into its rows of one pinned
   ``[n, packet_size]`` batch buffer, so the host never concatenates
   shards; debug flags are joined in packet order and checked once.
+- Each batch of either verb takes the next of two batch slots when it is
+  submitted.  A slot's data or blob buffer is handed out again only once
+  every shard's batch that last read the slot has finished, so the drive
+  loops, which hold one batch in flight while they read the next, never
+  overwrite bytes a copy to the card has yet to read.
 - The JAX class's synchronous stride API (``encode``, ``encode_async`` /
   ``encode_wait``, ``encode_body``, ``decode``, ``decode_wait``) runs the
   same shards: each shard's fixed-stride packets and lengths land in its
@@ -76,9 +86,10 @@ class MeshCodec:
         self._slots = [_Slot(pinned), _Slot(pinned)]
         self._next = 0
         # Per slot, each shard's event of the last batch that read the
-        # slot's blob buffer: waited on before the buffer is written again.
+        # slot's data or blob buffer: waited on before either is written
+        # again.
         self._uploads: list[list] = [[], []]
-        self._handed = None  # (slot index, tensor) of the last blob_buffer
+        self._handed = None  # (name, slot index, tensor) last handed out
 
     def _slot(self) -> _Slot:
         # The batch buffers alternate like a DeviceCodec's: a decoded
@@ -90,18 +101,66 @@ class MeshCodec:
     def _shards(self, n: int):
         return zip(self.codecs, shard_bounds(n, len(self.codecs)))
 
+    # --- host staging ------------------------------------------------------
+    def _staging(self, i: int, name: str, nbytes: int) -> torch.Tensor:
+        """Slot i's host buffer ``name`` of nbytes, once every shard's
+        batch that last read the slot has finished."""
+        for event in self._uploads[i]:
+            DeviceCodec._wait(event)
+        self._uploads[i] = []
+        return self._slots[i].buf(name, nbytes)
+
+    def _hand(self, name: str, nbytes: int) -> np.ndarray:
+        """The buffer ``name`` of the slot the next submit takes, as a flat
+        uint8 host array to build the next batch in."""
+        staging = self._staging(self._next, name, nbytes)
+        self._handed = (name, self._next, staging)
+        return staging.numpy()
+
+    def _staged(self, name: str, i: int, arr: np.ndarray) -> torch.Tensor:
+        """Slot i's buffer ``name`` holding arr's bytes, flat: the handed
+        buffer itself when arr was built at its head, else a copy."""
+        handed, self._handed = self._handed, None
+        if handed is not None and handed[0] == name \
+                and arr.ctypes.data == handed[2].data_ptr():
+            if handed[1] != i:
+                raise RuntimeError(f"{name} was built in the other batch "
+                                   "slot's buffer")
+            return handed[2][: arr.nbytes]
+        staged = self._staging(i, name, arr.nbytes)
+        staged.numpy()[:] = arr.reshape(-1)
+        return staged
+
     # --- encode ------------------------------------------------------------
+    def encode_buffer(self, n: int) -> np.ndarray:
+        """A uint8 [n, packet_size] host array to read the next batch
+        into: the data buffer of the batch slot that the next
+        encode_body_async takes (pinned for a CUDA device), which uploads
+        it with no copy when given it as ``data``."""
+        return self._hand("data", n * self.packet_size) \
+            .reshape(n, self.packet_size)
+
     def encode_body_async(self, data: np.ndarray, sizes: np.ndarray):
-        """Launch every shard's K1 and compaction; returns one handle."""
+        """Launch every shard's K1 and compaction; returns one handle.
+        Every shard uploads its rows of the slot's data buffer: a batch
+        read into ``encode_buffer`` is already there, any other array is
+        copied in first."""
         n = data.shape[0]
-        return n, [(codec, codec.encode_body_async(data[a:b], sizes[a:b]))
-                   for codec, (a, b) in self._shards(n)]
+        i = self._next
+        slot = self._slot()
+        staged = self._staged("data", i, data).view(n, self.packet_size)
+        parts = [(codec, codec.encode_body_async(staged[a:b], sizes[a:b]))
+                 for codec, (a, b) in self._shards(n)]
+        self._uploads[i] = [h[1] for _, h in parts]
+        return slot, n, parts
 
     def encode_body_wait(self, handle):
         """-> (.gip body uint8 [bytes], lengths int32 [n]) in packet
-        order."""
-        n, parts = handle
-        buf = self._slot().buf("blob", n * self.stride)
+        order.  The body is spliced in place in the slot's blob buffer: it
+        stays valid until the wait of the slot's next batch, two submits
+        later (the drive loops write it out before that)."""
+        slot, n, parts = handle
+        buf = slot.buf("blob", n * self.stride)
         pos, offsets, lengths = 0, [np.zeros(0, np.int64)], \
             [np.zeros(0, np.int32)]
         for codec, h in parts:
@@ -110,8 +169,9 @@ class MeshCodec:
             lengths.append(lens)
             pos += blob.size
         lengths = np.concatenate(lengths)
-        return (native.splice_at(buf[:pos].numpy(), np.concatenate(offsets),
-                                 lengths), lengths)
+        body = buf[:pos].numpy()
+        return (native.splice_at(body, np.concatenate(offsets), lengths,
+                                 out=body), lengths)
 
     def encode_body(self, data: np.ndarray, sizes: np.ndarray):
         """encode_body_wait(encode_body_async(data, sizes))."""
@@ -155,22 +215,12 @@ class MeshCodec:
     def _out(self, slot: _Slot, n: int) -> torch.Tensor:
         return slot.buf("out", n * self.packet_size).view(n, self.packet_size)
 
-    def _blob_staging(self, i: int, nbytes: int) -> torch.Tensor:
-        """Slot i's blob buffer of nbytes, once every shard's batch that
-        last read it has finished."""
-        for event in self._uploads[i]:
-            DeviceCodec._wait(event)
-        self._uploads[i] = []
-        return self._slots[i].buf("blob", nbytes)
-
     def blob_buffer(self, nbytes: int) -> np.ndarray:
         """A flat uint8 host array of nbytes to build the next batch's blob
         in: the blob buffer of the batch slot that the next
         decode_blob_async takes (pinned for a CUDA device), which uploads
         it with no copy when given its head as ``blob``."""
-        staging = self._blob_staging(self._next, nbytes)
-        self._handed = (self._next, staging)
-        return staging.numpy()
+        return self._hand("blob", nbytes)
 
     def decode_blob_async(self, blob: np.ndarray, roff: np.ndarray,
                           comp_len: np.ndarray, raw_sizes: np.ndarray):
@@ -182,15 +232,7 @@ class MeshCodec:
         i = self._next
         slot = self._slot()
         out = self._out(slot, n)
-        handed, self._handed = self._handed, None
-        if handed is not None and blob.ctypes.data == handed[1].data_ptr():
-            if handed[0] != i:
-                raise RuntimeError("decode_blob_async: the blob was built in "
-                                   "the other batch slot's buffer")
-            staged = handed[1][: blob.size]
-        else:
-            staged = self._blob_staging(i, blob.size)
-            staged.numpy()[:] = blob
+        staged = self._staged("blob", i, blob)
         rb = self.row_bytes
         parts = []
         for codec, (a, b) in self._shards(n):

@@ -3,10 +3,10 @@
 The counterpart of ``gpuar_tpu/parallel/runner.py::TPUCompressor``: it
 plugs a MeshCodec over the local GPUs (every one by default, or the one
 ``device_index`` pins) into the drive loops of ``pipeline.Compressor``
-(read a super-batch, submit it, fetch the previous one, splice in order
-into the ``.gip`` container).  Each device's
-CUDA streams and per-batch events let batch N+1 run on the cards while the
-host writes batch N.  In a ``--multihost`` run each process's
+(read a super-batch into the mesh's pinned upload buffer, submit it,
+fetch the previous one, splice in order into the ``.gip`` container).
+Each device's CUDA streams and per-batch events let batch N+1 run on the
+cards while the host writes batch N.  In a ``--multihost`` run each process's
 GPUCompressor codes that process's range on its own local GPUs
 (``parallel/distributed.py``).
 """
@@ -46,23 +46,36 @@ class GPUCompressor(Compressor):
         kw = {} if packet_size is None else {"packet_size": packet_size}
         self.codec = MeshCodec(devices, debug=debug, **kw)
         self.packet_size = self.codec.packet_size
+        self._handed = None  # the last encode_buffer, until encode_submit
         # The super-batch is the total over all devices (no lane rounding).
         super().__init__(super_batch_packets=super_batch_packets)
+
+    def encode_buffer(self, nbytes: int) -> np.ndarray:
+        """The flat host buffer to read the next super-batch's nbytes into:
+        the mesh's data buffer (``MeshCodec.encode_buffer``) of whole
+        packets, pinned for a CUDA device, so the upload reads the file's
+        bytes where they were read."""
+        n = -(-nbytes // self.packet_size)
+        self._handed = self.codec.encode_buffer(n).reshape(-1)
+        return self._handed
 
     def _packetize(self, raw: np.ndarray):
         psize = self.packet_size
         n = -(-raw.size // psize)
         if n == 0:
             return None, None
+        buf, self._handed = self._handed, None
+        if buf is None or raw.ctypes.data != buf.ctypes.data:
+            # Not read into encode_buffer (encode_batch's callers): one
+            # copy into the upload buffer.
+            buf = self.codec.encode_buffer(n).reshape(-1)
+            buf[: raw.size] = raw
+        # The ragged last packet's tail, zeroed in place: a reused buffer
+        # still holds an earlier batch's bytes there.
+        buf[raw.size: n * psize] = 0
         sizes = np.full(n, psize, np.int32)
-        if raw.size == n * psize:
-            # Whole batches need no padding: a view (the codec copies it
-            # into its pinned upload buffer).
-            return raw.reshape(n, psize), sizes
-        data = np.zeros((n, psize), np.uint8)
-        data.reshape(-1)[: raw.size] = raw
         sizes[-1] = raw.size - (n - 1) * psize
-        return data, sizes
+        return buf[: n * psize].reshape(n, psize), sizes
 
     def encode_batch(self, raw: np.ndarray):
         return self.encode_fetch(self.encode_submit(raw))

@@ -48,6 +48,8 @@ class Compressor:
 
     def __init__(self, super_batch_packets: int = DEFAULT_SUPER_BATCH_PACKETS):
         self.super_batch_packets = super_batch_packets
+        self._read_bufs = [np.empty(0, np.uint8), np.empty(0, np.uint8)]
+        self._read_turn = 0
 
     # --- backend interface -------------------------------------------------
     def encode_batch(self, raw: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
@@ -57,6 +59,20 @@ class Compressor:
     def decode_batch(self, packets: np.ndarray, raw_sizes: np.ndarray) -> np.ndarray:
         """packets [p, COMPRESSED_PACKET_SIZE] -> raw [p, UNCOMPRESSED_PACKET_SIZE]."""
         raise NotImplementedError
+
+    def encode_buffer(self, nbytes: int) -> np.ndarray:
+        """A flat uint8 host array of at least nbytes to read the next
+        super-batch into; ``encode_submit`` gets the bytes read as a view
+        of its head.  The default alternates two arrays, so a batch stays
+        intact until two reads later: the drive loops hold one batch in
+        flight while they read the next (the sleep control keeps it in its
+        handle until fetch).  GPUCompressor hands out the pinned buffer
+        its upload reads."""
+        buf = self._read_bufs[self._read_turn]
+        if buf.size < nbytes:
+            buf = self._read_bufs[self._read_turn] = np.empty(nbytes, np.uint8)
+        self._read_turn ^= 1
+        return buf
 
     # Split submit/fetch interface for copy/compute/IO overlap — the
     # reference's rotating-stream pipeline (src/gpu_compressor.cpp:124-196).
@@ -124,12 +140,15 @@ class Compressor:
             while not eof or pending is not None:
                 handle = None
                 if not eof:
+                    # The file goes straight into the backend's buffer (the
+                    # reference freads into a pinned slot,
+                    # src/gpu_compressor.cpp:143-154).
                     with io:
-                        chunk = fin.read(batch_bytes)
-                    if chunk:
+                        buf = self.encode_buffer(batch_bytes)
+                        got = read_into(fin, buf[:batch_bytes])
+                    if got:
                         with process:
-                            raw = np.frombuffer(chunk, dtype=np.uint8)
-                            handle = (self.encode_submit(raw), len(chunk))
+                            handle = (self.encode_submit(buf[:got]), got)
                     else:
                         eof = True
                 if pending is not None:
@@ -303,6 +322,19 @@ def _check_resume_matches(src, done_raw: int, last_packet: bytes) -> None:
             "already in the output (input changed since the interrupted "
             "run); rerun without --resume"
         )
+
+
+def read_into(f, buf: np.ndarray) -> int:
+    """Fill the flat uint8 array buf from f with ``readinto`` until it is
+    full or the file ends (a short read is not the end); returns the
+    bytes read."""
+    view, got = memoryview(buf), 0
+    while got < buf.size:
+        k = f.readinto(view[got:])
+        if not k:
+            break
+        got += k
+    return got
 
 
 def _splice(packets: np.ndarray, lengths: np.ndarray) -> np.ndarray:

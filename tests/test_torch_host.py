@@ -92,11 +92,10 @@ def test_native_packets_equal_jax(case, jax_golden):
     np.testing.assert_array_equal(lens, jlens)
 
 
-@pytest.mark.parametrize("row_bytes", [1, 96, 128])
-def test_native_splice_and_expand_equal_jax(row_bytes, jax_golden):
-    """splice_at strips a row-aligned blob to the body, expand_at scatters
-    the body back, and splice concatenates stride rows: each equal to the
-    JAX package's, on the packets of every corpus."""
+def _row_aligned(row_bytes: int):
+    """The packets of every corpus, each at the start of a row of
+    row_bytes: (the packets, their lengths, row-aligned offsets, the
+    blob's bytes with two spare rows, and the back-to-back body)."""
     packets = [port_native.encode_packet(c) for blob in corpora().values()
                for c in _chunks(blob)]
     lengths = np.array([len(p) for p in packets], np.int32)
@@ -104,7 +103,16 @@ def test_native_splice_and_expand_equal_jax(row_bytes, jax_golden):
     offsets = np.zeros(len(packets), np.int64)
     np.cumsum(rows[:-1] * row_bytes, out=offsets[1:])
     cap = int(offsets[-1] + rows[-1] * row_bytes) + 2 * row_bytes
-    body = np.frombuffer(b"".join(packets), np.uint8)
+    return (packets, lengths, offsets, cap,
+            np.frombuffer(b"".join(packets), np.uint8))
+
+
+@pytest.mark.parametrize("row_bytes", [1, 96, 128])
+def test_native_splice_and_expand_equal_jax(row_bytes, jax_golden):
+    """splice_at strips a row-aligned blob to the body, expand_at scatters
+    the body back, and splice concatenates stride rows: each equal to the
+    JAX package's, on the packets of every corpus."""
+    packets, lengths, offsets, cap, body = _row_aligned(row_bytes)
     blob = port_native.expand_at(body, offsets, lengths, cap)
     np.testing.assert_array_equal(
         blob, jax_golden.expand_at(body, offsets, lengths, cap))
@@ -119,6 +127,47 @@ def test_native_splice_and_expand_equal_jax(row_bytes, jax_golden):
                                   jax_golden.splice(stride, lengths))
     with pytest.raises(ValueError, match="out of range"):
         port_native.splice_at(blob, offsets + cap, lengths)
+
+
+@pytest.mark.parametrize("row_bytes", [1, 96, 128])
+@pytest.mark.parametrize("into", ["reused", "in_place"])
+def test_native_splice_at_into_out_equals_jax(row_bytes, into, jax_golden):
+    """splice_at into a given array, a reused 0xFF-filled buffer or the
+    blob itself (output and sources overlapping), equals the JAX
+    package's splice_at at 0 bytes, on the row-aligned blob of every
+    corpus and on seeded offsets whose source ranges overlap one another;
+    in place, a packet whose output would pass its source is refused."""
+    _, lengths, offsets, cap, body = _row_aligned(row_bytes)
+    rng = np.random.default_rng(row_bytes)
+    blob = port_native.expand_at(body, offsets, lengths, cap)
+    blob[offsets[-1] + lengths[-1]:] = rng.integers(
+        0, 256, cap - offsets[-1] - lengths[-1], np.uint8)
+    want = jax_golden.splice_at(blob, offsets, lengths)
+    assert want.tobytes() == body.tobytes()
+    if into == "reused":
+        out = np.full(body.size + 300 * 600, 0xFF, np.uint8)
+        got = port_native.splice_at(blob, offsets, lengths, out=out)
+        assert got.ctypes.data == out.ctypes.data
+        np.testing.assert_array_equal(got, want)
+        assert (out[body.size:] == 0xFF).all()
+        # Sources overlapping one another, the same out reused.
+        offs = np.sort(rng.integers(0, cap - 600, 300)).astype(np.int64)
+        lens = rng.integers(0, 600, 300).astype(np.int32)
+        got = port_native.splice_at(blob, offs, lens, out=out)
+        np.testing.assert_array_equal(
+            got, jax_golden.splice_at(blob, offs, lens))
+    else:
+        work = blob.copy()
+        got = port_native.splice_at(work, offsets, lengths, out=work)
+        assert got.ctypes.data == work.ctypes.data
+        np.testing.assert_array_equal(got, want)
+        back = blob.copy()
+        with pytest.raises(ValueError, match="past its source"):
+            port_native.splice_at(back, offsets[::-1].copy(),
+                                  lengths[::-1].copy(), out=back)
+    with pytest.raises(ValueError, match="at least"):
+        port_native.splice_at(blob, offsets, lengths,
+                              out=np.empty(body.size - 1, np.uint8))
 
 
 @pytest.mark.parametrize("size", [0, 1, P - 1, P, P + 1, 3 * P + 77])

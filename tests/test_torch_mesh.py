@@ -120,6 +120,40 @@ def test_decode_blob_built_in_blob_buffer(k, batch, reference):
         mesh.decode_blob_async(*batch_blob)
 
 
+@pytest.mark.parametrize("k", [1, 2, 3])
+def test_encode_batch_read_into_encode_buffer(k, batch, reference):
+    """A batch written into encode_buffer (handed 0xFF-filled) encodes
+    over two batches in flight, each body spliced in place; one written in
+    a slot that another submit has since taken is refused, not silently
+    copied; a read-only array from elsewhere, after a handed buffer went
+    unused, is copied into the slot's buffer and encodes the same."""
+    data, sizes = batch
+    body, lengths = reference[:2]
+    mesh = MeshCodec([CPU] * k, packet_size=P)
+    handles = []
+    for _ in range(2):
+        buf = mesh.encode_buffer(N)
+        assert buf.shape == (N, P) and buf.dtype == np.uint8
+        buf.fill(0xFF)
+        buf[:] = data
+        handles.append(mesh.encode_body_async(buf, sizes))
+    for h in handles:
+        got, got_len = mesh.encode_body_wait(h)
+        np.testing.assert_array_equal(got_len, lengths)
+        assert got.tobytes() == body
+    stale = mesh.encode_buffer(N)
+    stale[:] = data
+    mesh.encode_wait(mesh.encode_async(data, sizes))
+    with pytest.raises(RuntimeError, match="other batch slot"):
+        mesh.encode_body_async(stale, sizes)
+    mesh.encode_buffer(N).fill(0xFF)
+    foreign = np.frombuffer(data.tobytes(), np.uint8).reshape(N, P)
+    got, got_len = mesh.encode_body_wait(mesh.encode_body_async(foreign,
+                                                                sizes))
+    np.testing.assert_array_equal(got_len, lengths)
+    assert got.tobytes() == body
+
+
 @pytest.mark.parametrize("k", [1, 2, 3, 8])
 def test_debug_flags_come_back_in_packet_order(k, batch, reference):
     """A noise-bodied copy of a compressible packet at batch index 50 (in

@@ -239,21 +239,39 @@ def test_gpu_main_path_matches_host(cuda, tmp_path):
     assert min(_kernels.LAUNCHES.values()) > 0
 
 
-def _record_blob_uploads(monkeypatch):
-    """Patch DeviceCodec._upload to record each blob it uploads: (is it a
-    host tensor, is it pinned)."""
+def _record_uploads(monkeypatch, name: str = "blob", keep=None):
+    """Patch DeviceCodec._upload to record each upload of ``name`` ("blob"
+    for decode, "data" for encode): (is it a host tensor, is it pinned);
+    with a list ``keep``, also a copy of each upload's bytes."""
     from gpuar_tpu_torch.parallel.codec import DeviceCodec
 
     seen, upload = [], DeviceCodec._upload
 
-    def recording(self, slot, name, arr):
-        if name == "blob":
+    def recording(self, slot, what, arr):
+        if what == name:
             seen.append((isinstance(arr, torch.Tensor),
                          isinstance(arr, torch.Tensor) and arr.is_pinned()))
-        return upload(self, slot, name, arr)
+            if keep is not None:
+                keep.append(np.array(arr, copy=True))
+        return upload(self, slot, what, arr)
 
     monkeypatch.setattr(DeviceCodec, "_upload", recording)
     return seen
+
+
+def _fill_handed_buffers(monkeypatch):
+    """Fill every buffer MeshCodec.encode_buffer hands out with 0xFF, so a
+    ragged tail the drive loop did not zero would show in the archive."""
+    from gpuar_tpu_torch.parallel.mesh import MeshCodec
+
+    hand = MeshCodec.encode_buffer
+
+    def filled(self, n):
+        buf = hand(self, n)
+        buf.fill(0xFF)
+        return buf
+
+    monkeypatch.setattr(MeshCodec, "encode_buffer", filled)
 
 
 def _three_batch_file(tmp_path):
@@ -282,7 +300,7 @@ def test_decompress_builds_blob_in_upload_buffer(tmp_path, monkeypatch):
     gpu = GPUCompressor(devices=[CPU, CPU], super_batch_packets=2)
     gpu.compress(src, tmp_path / "gpu.gip")
     assert (tmp_path / "gpu.gip").read_bytes() == ref.read_bytes()
-    seen = _record_blob_uploads(monkeypatch)
+    seen = _record_uploads(monkeypatch)
     gpu.decompress(ref, tmp_path / "back.bin")
     PortHost(super_batch_packets=2).decompress(ref, tmp_path / "host.bin")
     assert (tmp_path / "back.bin").read_bytes() == data
@@ -297,7 +315,7 @@ def test_gpu_decompress_uploads_pinned_blob(cuda, tmp_path, monkeypatch,
     """On the card, over three super-batches, decompress round-trips and
     each shard uploads a pinned tensor (two shards share the one card)."""
     data, src, ref = _three_batch_file(tmp_path)
-    seen = _record_blob_uploads(monkeypatch)
+    seen = _record_uploads(monkeypatch)
     GPUCompressor(devices=[cuda] * shards, super_batch_packets=2) \
         .decompress(ref, tmp_path / "back.bin")
     assert (tmp_path / "back.bin").read_bytes() == data
@@ -333,3 +351,217 @@ def test_compacted_body_path_matches_stride_path(rng):
     out = codec.decode_body_wait(
         codec.decode_blob_async(blob, roff, comp_len, raw))
     np.testing.assert_array_equal(out, data)
+
+
+# --- the compress feed: the file read straight into the upload buffer ------
+
+def _jax_archive(data: bytes, packet_size: int) -> bytes:
+    """The JAX package's archive of data at packet_size: its golden
+    codec's stream body behind its file header."""
+    from gpuar_tpu import container as jax_container
+
+    body = jax_native().encode_stream(data, packet_size)
+    return jax_container.FileHeader(
+        uncompressed_size=len(data),
+        compressed_size=jax_container.HEADER_LENGTH + len(body)).to_bytes() \
+        + body
+
+
+def _p64_file(tmp_path):
+    """2 * 8192 + 3000 B at P = 64: three super-batches of one (128, 128
+    and 47 packets, the last ragged), text in the second."""
+    data = np.random.default_rng(0xFEED).integers(0, 256, 2 * P + 3000,
+                                                  np.uint8)
+    data[P: 2 * P] = np.frombuffer(
+        (b"the quick brown fox jumps over the lazy dog. " * 200)[:P],
+        np.uint8)
+    src = tmp_path / "in.bin"
+    src.write_bytes(data.tobytes())
+    return data.tobytes(), src
+
+
+@pytest.mark.parametrize("k", [1, 2, 3])
+def test_compress_reads_into_upload_buffer(tmp_path, monkeypatch, k):
+    """On k CPU shards, over three super-batches with a ragged last packet
+    and every handed buffer filled with 0xFF first, the archive equals
+    the JAX package's at 0 bytes; each shard of each batch uploads its
+    rows of the buffer the file was read into (a host tensor: no copy),
+    and the rows uploaded, in order, are the file zero-padded to whole
+    packets (none of the 0xFF is left in the ragged tail)."""
+    data, src = _p64_file(tmp_path)
+    _fill_handed_buffers(monkeypatch)
+    rows = []
+    seen = _record_uploads(monkeypatch, "data", keep=rows)
+    gpu = GPUCompressor(devices=[CPU] * k, packet_size=64,
+                        super_batch_packets=1)
+    gpu.compress(src, tmp_path / "port.gip")
+    assert (tmp_path / "port.gip").read_bytes() == _jax_archive(data, 64)
+    assert seen == [(True, False)] * (3 * k)
+    padded = np.zeros(-(-len(data) // 64) * 64, np.uint8)
+    padded[: len(data)] = np.frombuffer(data, np.uint8)
+    np.testing.assert_array_equal(np.concatenate(rows).reshape(-1), padded)
+    gpu.decompress(tmp_path / "port.gip", tmp_path / "back.bin")
+    assert (tmp_path / "back.bin").read_bytes() == data
+
+
+@pytest.mark.parametrize("resume", [False, True])
+def test_default_geometry_feed_matches_host(tmp_path, monkeypatch, resume):
+    """At 8192 B on [cpu] * 3, with 0xFF-filled buffers: three
+    super-batches of two (2 + 2 + 1 packets, the last ragged) give
+    HostCompressor's archive; resumed from an archive cut inside its third
+    packet, the three packets left go in three super-batches of one and
+    give it too."""
+    data, src, ref = _three_batch_file(tmp_path)
+    blob = ref.read_bytes()
+    out = tmp_path / "port.gip"
+    sbp = 2
+    if resume:
+        at = container.HEADER_LENGTH
+        for _ in range(2):
+            at += blob[at] | blob[at + 1] << 8
+        out.write_bytes(blob[: at + 100])
+        sbp = 1
+    _fill_handed_buffers(monkeypatch)
+    rows = []
+    seen = _record_uploads(monkeypatch, "data", keep=rows)
+    info = GPUCompressor(devices=[CPU] * 3, super_batch_packets=sbp) \
+        .compress(src, out, resume=resume)
+    assert out.read_bytes() == blob
+    assert info.compressed_file_size == len(blob)
+    assert seen == [(True, False)] * (3 if resume else 5)
+    padded = np.zeros(5 * P, np.uint8)
+    padded[: len(data)] = np.frombuffer(data, np.uint8)
+    np.testing.assert_array_equal(np.concatenate(rows).reshape(-1),
+                                  padded[2 * P if resume else 0:])
+
+
+@pytest.mark.parametrize("k", [1, 2, 3])
+def test_fetched_body_survives_next_submit(k):
+    """In the drive loop's order (submit N + 1, fetch N, submit N + 2,
+    write N), batch N's body, spliced in place in its slot's buffer and
+    not in a fresh array, is still intact after batch N + 2 was read into
+    and submitted from the same slot's data buffer."""
+    from gpuar_tpu_torch.parallel.mesh import MeshCodec
+
+    rng = np.random.default_rng(0xB0D1 + k)
+    batches = [rng.integers(0, 256, n, np.uint8) for n in (P, P, 3000)]
+    batches[1][:4000] = 7
+    gpu = GPUCompressor(devices=[CPU] * k, packet_size=64,
+                        super_batch_packets=1)
+
+    def submit(raw):
+        buf = MeshCodec.encode_buffer(gpu.codec, -(-raw.size // 64))
+        buf.fill(0xFF)
+        flat = gpu.encode_buffer(raw.size)
+        flat[: raw.size] = raw
+        return gpu.encode_submit(flat[: raw.size])
+
+    want = [jax_native().encode_stream(b.tobytes(), 64) for b in batches]
+    h0, h1 = submit(batches[0]), submit(batches[1])
+    body0, _ = gpu.encode_fetch(h0)
+    assert body0.ctypes.data == gpu.codec._slots[0].bufs["blob"].data_ptr()
+    h2 = submit(batches[2])
+    assert body0.tobytes() == want[0]
+    body1, _ = gpu.encode_fetch(h1)
+    assert body1.tobytes() == want[1]
+    assert body0.tobytes() == want[0]
+    body2, _ = gpu.encode_fetch(h2)
+    assert body2.tobytes() == want[2]
+    assert body1.tobytes() == want[1]
+
+
+@pytest.mark.parametrize("k", [1, 3])
+def test_array_from_elsewhere_goes_through_the_copy(monkeypatch, k):
+    """encode_batch of a read-only array that was not read into the
+    handed buffer (one handed and filled with 0xFF, then left unused)
+    gives the JAX package's body: it is copied into the slot's data
+    buffer, whose ragged tail is zeroed, and the shards upload that."""
+    rng = np.random.default_rng(0xC0DE)
+    raw = np.frombuffer(rng.integers(0, 256, 5000, np.uint8).tobytes(),
+                        np.uint8)
+    gpu = GPUCompressor(devices=[CPU] * k, packet_size=64)
+    gpu.encode_buffer(P).fill(0xFF)
+    rows = []
+    seen = _record_uploads(monkeypatch, "data", keep=rows)
+    body, lengths = gpu.encode_batch(raw)
+    assert body.tobytes() == jax_native().encode_stream(raw.tobytes(), 64)
+    assert lengths.shape == (79,)
+    assert seen == [(True, False)] * k
+    padded = np.zeros(79 * 64, np.uint8)
+    padded[: raw.size] = raw
+    np.testing.assert_array_equal(np.concatenate(rows).reshape(-1), padded)
+
+
+_WORLD_WORKER = """
+import sys
+rank, world, store, src, dst, repo, shards = sys.argv[1:8]
+sys.path.insert(0, repo)
+import torch
+from gpuar_tpu_torch.parallel import distributed
+from gpuar_tpu_torch.parallel.mesh import MeshCodec
+from gpuar_tpu_torch.parallel.runner import GPUCompressor
+
+hand = MeshCodec.encode_buffer
+
+
+def filled(self, n):
+    buf = hand(self, n)
+    buf.fill(0xFF)
+    return buf
+
+
+MeshCodec.encode_buffer = filled
+distributed.initialize(init_method=f"file://{store}", world_size=int(world),
+                       rank=int(rank))
+distributed.DistributedCompressor(backend=GPUCompressor(
+    devices=[torch.device("cpu")] * int(shards), packet_size=64,
+    super_batch_packets=1)).compress(src, dst)
+torch.distributed.destroy_process_group()
+"""
+
+
+@pytest.mark.parametrize("world,shards", [(1, 3), (2, 2)])
+def test_multihost_compress_reads_into_upload_buffer(tmp_path, world,
+                                                     shards):
+    """DistributedCompressor in worlds of 1 and 2 processes (FileStore in
+    tmp_path) over GPUCompressor on CPU shards, with 0xFF-filled handed
+    buffers: the archive equals the JAX package's at 0 bytes (rank 0
+    reads two super-batches, rank 1 one and a ragged one)."""
+    data = np.random.default_rng(0x3D).integers(0, 256, 3 * P + 777,
+                                                np.uint8)
+    data[P: 2 * P] = 3
+    src, dst = tmp_path / "in.bin", tmp_path / "out.gip"
+    src.write_bytes(data.tobytes())
+    worker = tmp_path / "worker.py"
+    worker.write_text(_WORLD_WORKER)
+    procs = [subprocess.Popen(
+        [sys.executable, str(worker), str(r), str(world),
+         str(tmp_path / "store"), str(src), str(dst), str(REPO),
+         str(shards)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in range(world)]
+    try:
+        for p in procs:
+            out, _ = p.communicate(timeout=240)
+            assert p.returncode == 0, out[-3000:]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    assert dst.read_bytes() == _jax_archive(data.tobytes(), 64)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shards", [1, 2])
+def test_gpu_compress_uploads_pinned_data(cuda, tmp_path, monkeypatch,
+                                          shards):
+    """On the card, over three super-batches with 0xFF-filled handed
+    buffers, the archive equals the host's, and every data upload of the
+    file compress is a pinned host tensor (two shards share the card)."""
+    data, src, ref = _three_batch_file(tmp_path)
+    _fill_handed_buffers(monkeypatch)
+    seen = _record_uploads(monkeypatch, "data")
+    GPUCompressor(devices=[cuda] * shards, super_batch_packets=2) \
+        .compress(src, tmp_path / "gpu.gip")
+    assert (tmp_path / "gpu.gip").read_bytes() == ref.read_bytes()
+    assert seen == [(True, True)] * (1 + 2 * shards)
