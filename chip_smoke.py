@@ -34,7 +34,9 @@ exit, no result line):
      the same blocks), then K1, K2 and K3 timed on its
      first n packets for n in 1, 132, 1024, 4096, 8192 (the 1-packet time
      is a kernel's chain latency); then kernel against plain version at
-     one small shape;
+     one small shape; then one warm sweep of the CLI (``c`` and ``d``) at
+     --batch-packets 1024, 2048, 4096 and 8192 on a 64 MiB random file,
+     printed on one line (``cli_sweep``);
   6. every local GPU: the phase 4 file through a GPUCompressor whose
      MeshCodec splits each super-batch over every card, or, on a one-card
      machine, over two DeviceCodecs of cuda:0 (each with its own streams):
@@ -63,7 +65,8 @@ exit, no result line):
      interleaved rounds); on that run's card tensors every probe at every
      width against its plain version at 256 steps, and at its full size
      each probe's default and P1's v31/v32 (whose int16 counts wrap past
-     32,767), at 0 tolerance;
+     32,767), at 0 tolerance; each probe's bound printed at the card's
+     integer rate and at that of the SMs its launch fills;
   9. the measurement harnesses as a user runs them, each a subprocess
      whose non-zero exit fails the smoke: the benchmark's random_64m cell
      at full size and its enwik8_proxy_100m cell at 16 MiB, each with a
@@ -87,11 +90,13 @@ exit, no result line):
 also profiles one warm compress and decompress after phase 4: the
 device's busy share and time per kernel (torch.profiler), the host
 functions with the most self time and every ``np.copyto`` by caller
-(cProfile); then one more of each with its stages timed, no profiler on
-(``stage_profile``: read, the wait for the upload buffer, submit, the
-batch's device work by CUDA events, fetch, splice or walk, write); and
-the splice of the three super-batches into a fresh array, a reused
-buffer and in place (``splice_choice``).
+(cProfile); then one more of each with its stages timed by thread, no
+profiler on (``stage_profile``: on the drive loop's thread the wait for
+the upload buffer, submit, fetch, splice and its waits on the reader and
+the writer; the reader's read and walk; the writer's write; the batch's
+device work by CUDA events; the wall); and the splice of the three
+super-batches into a fresh array, a reused buffer and in place
+(``splice_choice``).
 
     python3 chip_smoke.py --parallel
 
@@ -126,6 +131,7 @@ import shutil
 import socket
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 from unittest import mock
@@ -830,13 +836,18 @@ def profile_main_path(card, gpu, src) -> None:
 
 
 class _StageClock:
-    """Seconds by stage of one run: host stages by the host clock around
-    the call that does them, device stages by CUDA events recorded on the
-    codec's stream before and after the call that enqueues them."""
+    """Seconds by thread and stage of one run: host stages by the host
+    clock around the call that does them, on the thread that made it (the
+    drive loop's own, its reader's or its writer's), device stages by CUDA
+    events recorded on the codec's stream before and after the call that
+    enqueues them.  The drive loop's waits on its reader and writer lanes
+    are stages of its thread.  Spans from several threads add up under a
+    lock."""
 
     def __init__(self):
-        self.host: dict[str, list] = {}
+        self.host: dict[tuple[str, str], list] = {}   # (thread, stage)
         self.events: dict[str, list] = {}
+        self._lock = threading.Lock()
 
     @contextlib.contextmanager
     def span(self, stage: str):
@@ -844,9 +855,12 @@ class _StageClock:
         try:
             yield
         finally:
-            acc = self.host.setdefault(stage, [0.0, 0])
-            acc[0] += time.perf_counter() - t
-            acc[1] += 1
+            sec = time.perf_counter() - t
+            key = (threading.current_thread().name, stage)
+            with self._lock:
+                acc = self.host.setdefault(key, [0.0, 0])
+                acc[0] += sec
+                acc[1] += 1
 
     def host_stage(self, owner, attr: str, stage: str):
         fn = getattr(owner, attr)
@@ -855,6 +869,18 @@ class _StageClock:
             with self.span(stage):
                 return fn(*args, **kw)
         return mock.patch.object(owner, attr, timed_call)
+
+    def lane_waits(self):
+        """The drive loop's waits on a lane (``_Lane.wait``, also inside
+        ``start``) as the stage "wait on <lane>"."""
+        from gpuar_tpu_torch import pipeline
+
+        wait, clock = pipeline._Lane.wait, self
+
+        def timed_wait(lane):
+            with clock.span(f"wait on {lane.name}"):
+                return wait(lane)
+        return mock.patch.object(pipeline._Lane, "wait", timed_wait)
 
     def device_stage(self, owner, attr: str, stage: str):
         fn = getattr(owner, attr)
@@ -865,13 +891,15 @@ class _StageClock:
             start.record(codec._stream)
             out = fn(codec, *args, **kw)
             end.record(codec._stream)
-            self.events.setdefault(stage, []).append((start, end))
+            with self._lock:
+                self.events.setdefault(stage, []).append((start, end))
             return out
         return mock.patch.object(owner, attr, timed_call)
 
     def timed_open(self):
         """``open`` for the pipeline module: its files' readinto and read
-        count as the read stage, their write as the write stage."""
+        count as the read stage, their write as the write stage, on the
+        thread that calls them."""
         clock = self
 
         class TimedFile:
@@ -901,20 +929,32 @@ class _StageClock:
 
         return lambda *args, **kw: TimedFile(open(*args, **kw))
 
+    THREADS = (("MainThread", "main"), ("gpuar-reader", "reader"),
+               ("gpuar-writer", "writer"))
+
     def line(self, wall: float, order: list[str]) -> str:
+        """The wall; each thread's stages in ``order`` then its waits, its
+        busy sum (and, on the main thread, the rest of the wall); the
+        device stages."""
         torch.cuda.synchronize()
-        parts, host = [], 0.0
+        parts = [f"wall {wall:.6f} s"]
+        for thread, label in self.THREADS:
+            mine = {st: v for (th, st), v in self.host.items()
+                    if th == thread}
+            stages = [st for st in order if st in mine] \
+                + sorted(st for st in mine if st.startswith("wait on"))
+            busy = sum(mine[st][0] for st in stages)
+            rest = f", rest {wall - busy:.6f} s" if label == "main" else ""
+            parts.append(f"{label}: " + ", ".join(
+                f"{st} {mine[st][0]:.6f} s x{mine[st][1]}" for st in stages)
+                + f" (sum {busy:.6f} s{rest})")
         for stage in order:
             if stage in self.events:
                 ev = self.events[stage]
                 sec = sum(a.elapsed_time(b) for a, b in ev) / 1e3
-                parts.append(f"{stage} {sec:.6f} s x{len(ev)} (CUDA events)")
-            else:
-                sec, n = self.host.get(stage, (0.0, 0))
-                host += sec
-                parts.append(f"{stage} {sec:.6f} s x{n}")
-        return (f"wall {wall:.6f} s; " + ", ".join(parts)
-                + f"; host rest {wall - host:.6f} s")
+                parts.append(f"device: {stage} {sec:.6f} s x{len(ev)} "
+                             f"(CUDA events)")
+        return "; ".join(parts)
 
 
 COMPRESS_STAGES = ["read", "buffer wait", "submit", "H2D + K1 + compaction",
@@ -925,12 +965,15 @@ DECOMPRESS_STAGES = ["read", "walk", "buffer wait", "submit",
 
 def stage_profile(card, gpu, src) -> None:
     """One more warm compress and decompress with each stage timed
-    (``_StageClock``, no profiler): the file's read, the wait for the
-    slot's upload buffer, the submit's host time, the batch's device work
-    by CUDA events on the codec's stream (the upload, the kernel, the
-    compaction or the download), the fetch, the splice or the reader's
-    walk, and the write.  Host stages are disjoint; the device stage
-    overlaps them, and the host rest is the wall not in a host stage."""
+    (``_StageClock``, no profiler), by thread: on the drive loop's thread
+    the wait for the slot's upload buffer, the submit's host time, the
+    fetch, the splice, and its waits on the reader and the writer; on the
+    reader's the file's read (and the walk); on the writer's the write;
+    and the batch's device work by CUDA events on the codec's stream (the
+    upload, the kernel, the compaction or the download).  A thread's
+    stages are disjoint; the threads' and the device's overlap one
+    another, so their sum may pass the wall, and the main thread's rest is
+    the wall not in one of its stages."""
     from gpuar_tpu_torch import native, pipeline
     from gpuar_tpu_torch.parallel.codec import DeviceCodec
     from gpuar_tpu_torch.parallel.mesh import MeshCodec
@@ -955,6 +998,7 @@ def stage_profile(card, gpu, src) -> None:
                 pipeline, "open", clock.timed_open(), create=True))
             stack.enter_context(clock.host_stage(MeshCodec, "_staging",
                                                  "buffer wait"))
+            stack.enter_context(clock.lane_waits())
             for kind, owner, attr, stage in hooks:
                 hook = clock.device_stage if kind == "device" \
                     else clock.host_stage
@@ -1011,6 +1055,55 @@ def splice_choice(card, src) -> None:
         f"{way} median {float(np.median(v)):.6f} s "
         f"[{min(v):.6f}, {max(v):.6f}]" for way, v in times.items()),
         flush=True)
+
+
+CLI_BATCH_PACKETS = (1024, 2048, 4096, 8192)   # --batch-packets swept
+
+
+def cli_sweep(card) -> None:
+    """The port's CLI (``cli.main``, in this process) at each
+    CLI_BATCH_PACKETS on a 64 MiB file of the random_64m cell's corpus
+    (``corpora.random_bytes``): at each size one untimed ``c`` and ``d``,
+    then one of each timed by the wall around the call; the archive
+    equals the 8192 one and the round trip is exact.  One line: wall s
+    and GB/s of each verb and its ``--json`` process and io seconds.
+    Data for the launch size; nothing here changes the default."""
+    from gpuar_tpu_torch import cli
+    from gpuar_tpu_torch.bench import corpora
+
+    t0 = time.perf_counter()
+    src, gip, back = WORK / "sweep.bin", WORK / "sweep.gip", \
+        WORK / "sweep_back.bin"
+    src.write_bytes(corpora.random_bytes(64 * MIB))
+    want, archive, rows = md5(src), None, []
+    for n in CLI_BATCH_PACKETS:
+        row = {"batch_packets": n}
+        for timed_run in (False, True):
+            for verb, i, o in (("c", src, gip), ("d", gip, back)):
+                out = io.StringIO()
+                t = time.perf_counter()
+                with contextlib.redirect_stdout(out):
+                    rc = cli.main([verb, f"--in={i}", f"--out={o}",
+                                   f"--batch-packets={n}", "--json",
+                                   "--nointeractive"])
+                sec = time.perf_counter() - t
+                if rc != 0:
+                    raise AssertionError(f"cli {verb} --batch-packets={n} "
+                                         f"exited {rc}: {out.getvalue()}")
+                if timed_run:
+                    stats = json.loads(out.getvalue().strip().splitlines()[-1])
+                    row[verb] = {"s": sec, "gbps": 64 * MIB / sec / 1e9,
+                                 "process_s": stats["process_time_s"],
+                                 "io_s": stats["io_time_s"]}
+        archive = archive or gip.read_bytes()
+        if gip.read_bytes() != archive or md5(back) != want:
+            raise AssertionError(f"--batch-packets={n}: archive or round "
+                                 f"trip differs")
+        rows.append(row)
+    print(f"[{card}] CLI sweep, 64 MiB random, warm, one run a verb and "
+          f"size: " + json.dumps(rows), flush=True)
+    say("4 CLI sweep", f"--batch-packets {CLI_BATCH_PACKETS}: equal "
+        f"archives, md5 round trips", t0)
 
 
 def main_path_batch(raw: np.ndarray, b: int):
@@ -1417,19 +1510,24 @@ def phase8(card):
     plain_ms, want = ms_of(lambda: probe_model.model_plain(
         r["words"], r["name"], probe_model.STEPS, probe_model.REPEAT))
     hold("probe_model", f"P1 {r['name']} [{tile}] full", r["out"], want)
-    # Per step of the tree: prefix, row 256's compare and select, bump,
-    # two adds to chk, the symbol's shift and mask; each input word read
-    # once, chk written once.  flat: the flat table's count (the update's
-    # 255 - s adds, two reads, the adds, the shift and mask) at the
-    # float32 rate, the bound before the tree.
-    syms = r["words"].view(torch.uint8)
-    nsym = syms.numel()
-    nbytes = r["words"].nbytes + 4 * tile
-    ops = probe_model.REPEAT * nsym * (TREE_PREFIX_OPS + TREE_BUMP_OPS + 6)
-    flat = bound(nbytes, probe_model.REPEAT * (
-        255 * nsym - int(syms.sum(dtype=torch.int64)) + 6 * nsym))
-    rows["probe_model"] = (r, plain_ms, bound(nbytes, ops, INT32_OPS_PER_S),
-                           flat)
+
+    def model_bound(r, flat=False, rate=INT32_OPS_PER_S):
+        # Per step of the tree: prefix, row 256's compare and select,
+        # bump, two adds to chk, the symbol's shift and mask; each input
+        # word read once, chk written once.  flat: the flat table's count
+        # (the update's 255 - s adds, two reads, the adds, the shift and
+        # mask) at the float32 rate, the bound before the tree.
+        syms = r["words"].view(torch.uint8)
+        nsym = syms.numel()
+        nbytes = r["words"].nbytes + 4 * r["width"]
+        if flat:
+            return bound(nbytes, probe_model.REPEAT * (
+                255 * nsym - int(syms.sum(dtype=torch.int64)) + 6 * nsym))
+        return bound(nbytes, probe_model.REPEAT * nsym
+                     * (TREE_PREFIX_OPS + TREE_BUMP_OPS + 6), rate)
+
+    rows["probe_model"] = (r, plain_ms, model_bound(r),
+                           model_bound(r, flat=True))
     # A count of row 255 passes 32,767 after about 32,500 steps, so only
     # the full run (65,536 steps a chain) takes the int16 counts of v31
     # and v32 through the wrap (v30 never updates its counts); v32 is v0's
@@ -1449,14 +1547,14 @@ def phase8(card):
         tile, iters, r["name"], r["out"].device))
     hold("probe_carry", f"P2 {r['name']} [{tile}] full", r["out"], want)
 
-    def carry_bound(r, flat=False):
+    def carry_bound(r, flat=False, rate=INT32_OPS_PER_S):
         # CARRY_OPS per carry per unrolled step over the integer rate
         # (flat: the same count over the float32 rate); the words are taken
         # and never read, so only the output moves.
         ncarry, packed, unroll = probe_model.CARRIES[r["name"]]
         return bound(4 * r["width"] * (ncarry if packed else 1),
                      CARRY_OPS * r["width"] * iters * ncarry * unroll,
-                     OPS_PER_S if flat else INT32_OPS_PER_S)
+                     OPS_PER_S if flat else rate)
 
     rows["probe_carry"] = (r, plain_ms, carry_bound(r),
                            carry_bound(r, flat=True))
@@ -1476,8 +1574,11 @@ def phase8(card):
     nbytes = r["words"].nbytes + 2 * r["sizes"].nbytes + r["out"][0].nbytes
     flat = bound(nbytes, 255 * nsym - int(syms.sum(dtype=torch.int64))
                  + 16 * nsym)
-    rows["profile_encode"] = (r, plain_ms, bound(nbytes, ops,
-                                                 INT32_OPS_PER_S), flat)
+
+    def encode_bound(r, flat=False, rate=INT32_OPS_PER_S):
+        return bound(nbytes, ops, rate)
+
+    rows["profile_encode"] = (r, plain_ms, encode_bound(r), flat)
 
     r = find("P4", probe_layouts.DEFAULT, probe_layouts.B)
     steps = probe_layouts.STEPS
@@ -1485,14 +1586,14 @@ def phase8(card):
         r["name"], r["width"], steps, r["seed"].device))
     hold("probe_layouts", f"P4 {r['name']} full", r["out"], want)
 
-    def onehot_bound(r, flat=False):
+    def onehot_bound(r, flat=False, rate=INT32_OPS_PER_S):
         # Table b counts symbol (7b + t) & 0xFF at step t: P4_STEP_OPS a
         # step over the integer rate; flat: the plain version's update of
         # 255 - s adds, one read, an add and a mask over the float32 rate.
         # Only the sums are written.
         n = r["width"]
         if not flat:
-            return bound(4 * n, P4_STEP_OPS * n * steps, INT32_OPS_PER_S)
+            return bound(4 * n, P4_STEP_OPS * n * steps, rate)
         # The adds of a table depend only on its offset 7b & 0xFF.
         t = torch.arange(steps)
         adds = torch.stack([(255 - ((o + t) & 0xFF)).sum()
@@ -1503,24 +1604,40 @@ def phase8(card):
     rows["probe_layouts"] = (r, plain_ms, onehot_bound(r),
                              onehot_bound(r, flat=True))
 
+    bound_of = {"probe_model": model_bound, "probe_carry": carry_bound,
+                "profile_encode": encode_bound, "probe_layouts": onehot_bound}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def launch_bound(key, r) -> str:
+        # The integer rate of the SMs the launch fills: one chain, packet
+        # or table a thread in blocks of 64, the blocks spread one an SM
+        # before any SM takes a second.
+        used = min(sms, -(-r["width"] // 64))
+        b, by = bound_of[key](r, rate=INT32_OPS_PER_S * used / sms)
+        return f"bound at the {used} of {sms} SMs it fills {b:.6f} ms ({by})"
+
     for key, (r, plain_ms, (bound_ms, by), flat) in rows.items():
         print(f"[{card}] {PROBE_ROUTES[key][0]} {r['name']} "
               f"[{r['width']}] full size: kernel {r['ms']:.4f} ms, plain "
               f"version {plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({by}, "
-              f"integer rate; flat-table count at the float32 rate "
-              f"{flat[0]:.6f} ms); equal at 0", flush=True)
-    # P2 and P4 k_onehot at K1's width too (the kernels line keeps the
+              f"integer rate of the card; flat-table count at the float32 "
+              f"rate {flat[0]:.6f} ms), {launch_bound(key, r)}; equal at 0",
+              flush=True)
+    # P1, P2 and P4 k_onehot at K1's width too (the kernels line keeps the
     # probes' own widths).
-    wide = (("probe_carry", find("P2", probe_model.DEFAULT_CARRY,
-                                 probe_model.TILES[-1]), carry_bound),
+    wide = (("probe_model", find("P1", probe_model.DEFAULT_VARIANT,
+                                 probe_model.TILES[-1])),
+            ("probe_carry", find("P2", probe_model.DEFAULT_CARRY,
+                                 probe_model.TILES[-1])),
             ("probe_layouts", find("P4", probe_layouts.DEFAULT,
-                                   probe_layouts.TABLES[-1]), onehot_bound))
-    for key, r, fn in wide:
+                                   probe_layouts.TABLES[-1])))
+    for key, r in wide:
+        fn = bound_of[key]
         (b, by), flat = fn(r), fn(r, flat=True)
         print(f"[{card}] {PROBE_ROUTES[key][0]} {r['name']} [{r['width']}]: "
               f"kernel {r['ms']:.4f} ms, bound {b:.6f} ms ({by}, integer "
-              f"rate; flat-table count at the float32 rate {flat[0]:.6f} "
-              f"ms)", flush=True)
+              f"rate of the card; flat-table count at the float32 rate "
+              f"{flat[0]:.6f} ms), {launch_bound(key, r)}", flush=True)
     say("8 full size", "each probe's default, v31 and v32 equal their "
         "plain versions", t0)
     return {key: {"name": PROBE_ROUTES[key][0], "route": "cuda",
@@ -1611,6 +1728,7 @@ def main() -> int:
                 stage_profile(CARD, gpu, src)
                 splice_choice(CARD, src)
             times = phase5(CARD, dev, src, errs)
+            cli_sweep(CARD)
             del gpu
         phase6(CARD, src, errs)
         phase7(CARD, src)

@@ -103,13 +103,19 @@ LAYERS = {
                        "GPUCompressor().decompress",
     "compress_process_s": "drive loop: CompressionInfo.process_time of a "
                           "compress, mean of the warm runs (submit and "
-                          "fetch, the device work it waits for)",
+                          "fetch on the loop's thread, the device work it "
+                          "waits for)",
     "compress_io_s": "drive loop: CompressionInfo.io_time of a compress, "
-                     "mean (file read and write, splice)",
+                     "mean (file read on the reader thread, splice, write "
+                     "on the writer thread; the threads overlap, so io "
+                     "plus process may exceed the wall)",
     "decompress_process_s": "drive loop: process_time of a decompress, "
-                            "mean",
-    "decompress_io_s": "drive loop: io_time of a decompress, mean (reader, "
-                       "blob build, write)",
+                            "mean (submit, fetch and splice on the loop's "
+                            "thread)",
+    "decompress_io_s": "drive loop: io_time of a decompress, mean (read "
+                       "and blob build on the reader thread, write on the "
+                       "writer thread; io plus process may exceed the "
+                       "wall)",
     "k1_ms": "kernel: K1 on super-batch 0 already on the card, CUDA events, "
              "least of 5",
     "k2_ms": "kernel: K2 on super-batch 0's compacted packets on the card, "

@@ -276,7 +276,8 @@ class DeviceCodec:
     def decode_body_wait(self, handle) -> np.ndarray:
         """-> raw uint8 [n, packet_size].  The array is a view of the
         slot's pinned buffer: it stays valid until the slot's next batch,
-        two submits later (the drive loops write it out before that)."""
+        two submits later (the drive loops' writer thread has written it
+        before that batch's submit)."""
         raw, flags, comp_len = self.wait_decoded(handle)
         if self.debug:
             dec_ops.check_debug_flags(flags, comp_len, raw.shape[0])

@@ -29,7 +29,10 @@ results in packet order.
   submitted.  A slot's data or blob buffer is handed out again only once
   every shard's batch that last read the slot has finished, so the drive
   loops, which hold one batch in flight while they read the next, never
-  overwrite bytes a copy to the card has yet to read.
+  overwrite bytes a copy to the card has yet to read.  A slot's output
+  (the decoded batch, the spliced body) stays valid until two submits
+  later; the drive loops' writer thread has written it before then
+  (``pipeline._Lane``).
 - The JAX class's synchronous stride API (``encode``, ``encode_async`` /
   ``encode_wait``, ``encode_body``, ``decode``, ``decode_wait``) runs the
   same shards: each shard's fixed-stride packets and lengths land in its
@@ -158,7 +161,8 @@ class MeshCodec:
         """-> (.gip body uint8 [bytes], lengths int32 [n]) in packet
         order.  The body is spliced in place in the slot's blob buffer: it
         stays valid until the wait of the slot's next batch, two submits
-        later (the drive loops write it out before that)."""
+        later (the drive loops' writer thread has written it before that
+        batch's submit)."""
         slot, n, parts = handle
         buf = slot.buf("blob", n * self.stride)
         pos, offsets, lengths = 0, [np.zeros(0, np.int64)], \

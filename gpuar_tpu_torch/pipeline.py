@@ -20,6 +20,8 @@ What the JAX module has and this copy drops: the decode route hint
 from __future__ import annotations
 
 import os
+import queue
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -97,6 +99,14 @@ class Compressor:
                  resume: bool = False) -> CompressionInfo:
         """Compress src into dst.
 
+        The drive loop runs on three threads, like the reference's
+        overlapped fill and drain (src/gpu_compressor.cpp:134-171).  For
+        batch k this thread fetches batch k - 1 and hands its body to a
+        writer thread, while a reader thread reads batch k straight into
+        the backend's buffer; then it submits batch k and hands the reader
+        batch k + 1's buffer.  Every backend call stays on this thread;
+        writes stay in batch order.
+
         With ``resume=True`` an interrupted output is continued: packets
         are appended in order, so a partial .gip is a valid prefix — the
         existing complete packets are walked (validated) and the input is
@@ -130,38 +140,40 @@ class Compressor:
         info.compressed_file_size = container.HEADER_LENGTH + done_comp
         info.processed_uncompressed_size = done_raw
 
+        reader, writer = _Lane("reader"), _Lane("writer")
         try:
-            # Overlapped fill/drain: batch N+1 is read and submitted before
-            # batch N's results are fetched and written, so device compute
-            # overlaps host I/O (the reference's stream pipeline,
-            # src/gpu_compressor.cpp:134-171).
+            def hand():
+                """The next batch's buffer, which the reader fills while
+                this thread fetches the batch before the last."""
+                with io:
+                    buf = self.encode_buffer(batch_bytes)[:batch_bytes]
+                reader.start(read_into, fin, buf)
+                return buf
+
+            buf = hand()
             pending = None  # (handle, chunk_len)
             eof = False
             while not eof or pending is not None:
-                handle = None
-                if not eof:
-                    # The file goes straight into the backend's buffer (the
-                    # reference freads into a pinned slot,
-                    # src/gpu_compressor.cpp:143-154).
-                    with io:
-                        buf = self.encode_buffer(batch_bytes)
-                        got = read_into(fin, buf[:batch_bytes])
-                    if got:
-                        with process:
-                            handle = (self.encode_submit(buf[:got]), got)
-                    else:
-                        eof = True
                 if pending is not None:
                     h, chunk_len = pending
                     with process:
                         packets, lengths = self.encode_fetch(h)
                     with io:
                         body = _splice(packets, lengths)
-                        fout.write(body)
+                    writer.start(fout.write, body)
                     info.compressed_file_size += len(body)
                     info.processed_uncompressed_size += chunk_len
                     monitor.update(info)
-                pending = handle
+                    pending = None
+                if not eof:
+                    got = reader.wait()
+                    if got:
+                        with process:
+                            pending = (self.encode_submit(buf[:got]), got)
+                        buf = hand()
+                    else:
+                        eof = True
+            writer.wait()
 
             with io:
                 fout.seek(0)
@@ -171,16 +183,21 @@ class Compressor:
                 )
                 fout.write(header.to_bytes())
         finally:
+            reader.close()
+            writer.close()
             fin.close()
             fout.close()
 
         monitor.finish()
         info.process_time = process.total
-        info.io_time = io.total
+        info.io_time = io.total + reader.timer.total + writer.timer.total
         return info
 
     def decompress(self, src: str | Path, dst: str | Path,
                    monitor: ProgressMonitor | None = None) -> CompressionInfo:
+        """Decompress src into dst, on three threads as ``compress``: the
+        reader thread walks batch k's packets while this thread fetches
+        batch k - 1 and the writer thread writes it."""
         monitor = monitor or ProgressMonitor(enabled=False)
         monitor.reset()
         info = CompressionInfo()
@@ -189,15 +206,23 @@ class Compressor:
         with io:
             actual = os.path.getsize(src)
             fin = open(src, "rb")
-            head_raw = fin.read(container.HEADER_LENGTH)
-        header = container.FileHeader.from_bytes(head_raw, actual_file_size=actual)
+        try:
+            with io:
+                head_raw = fin.read(container.HEADER_LENGTH)
+            header = container.FileHeader.from_bytes(
+                head_raw, actual_file_size=actual)
+            with io:
+                fout = open(dst, "wb")
+        except BaseException:
+            fin.close()
+            raise
         info.uncompressed_file_size = header.uncompressed_size
         info.compressed_file_size = header.compressed_size
 
-        with io:
-            fout = open(dst, "wb")
+        n = self.super_batch_packets
+        reader, writer = _Lane("reader"), _Lane("writer")
         try:
-            reader = _PacketReader(
+            packets_in = _PacketReader(
                 fin, max_raw=getattr(self, "packet_size",
                                      UNCOMPRESSED_PACKET_SIZE))
             # Backends exposing decode_blob_geometry take the compacted
@@ -208,46 +233,48 @@ class Compressor:
             # decode_blob_buffer hands out (GPUCompressor: the pinned one
             # the upload reads, so no copy comes before the H2D).
             blob_geom = getattr(self, "decode_blob_geometry", None)
+            geom = None if blob_geom is None else blob_geom()
+            submit = self.decode_submit if geom is None \
+                else self.decode_submit_blob
+
+            def hand():
+                """Start the reader on the next batch: into the buffer
+                decode_blob_buffer hands out, or as a fixed-stride
+                batch."""
+                if geom is None:
+                    reader.start(packets_in.read_batch, n)
+                    return
+                with io:
+                    out = self.decode_blob_buffer(blob_capacity(n, *geom))
+                reader.start(packets_in.read_batch_blob, n, *geom, out)
+
+            hand()
             pending = None  # (handle, raw_sizes)
             eof = False
             while not eof or pending is not None:
-                handle = None
-                if not eof and blob_geom is not None:
-                    with io:
-                        geom = blob_geom()
-                        batch = reader.read_batch_blob(
-                            self.super_batch_packets, *geom,
-                            out=self.decode_blob_buffer(blob_capacity(
-                                self.super_batch_packets, *geom)))
-                    if batch is not None:
-                        blob, roff, comp_len, raw_sizes = batch
-                        with process:
-                            handle = (self.decode_submit_blob(
-                                blob, roff, comp_len, raw_sizes), raw_sizes)
-                    else:
-                        eof = True
-                elif not eof:
-                    with io:
-                        packets, raw_sizes = reader.read_batch(
-                            self.super_batch_packets
-                        )
-                    if packets is not None:
-                        with process:
-                            handle = (self.decode_submit(packets, raw_sizes),
-                                      raw_sizes)
-                    else:
-                        eof = True
                 if pending is not None:
                     h, sizes_n = pending
                     with process:
                         raw = self.decode_fetch(h)
                         body = _splice(raw, sizes_n)
-                    with io:
-                        fout.write(body)
+                    writer.start(fout.write, body)
                     info.processed_uncompressed_size += int(sizes_n.sum())
                     monitor.update(info)
-                pending = handle
+                    pending = None
+                if not eof:
+                    batch = reader.wait()
+                    if geom is None and batch[0] is None:
+                        batch = None   # read_batch's EOF
+                    if batch is None:
+                        eof = True
+                    else:
+                        with process:
+                            pending = (submit(*batch), batch[-1])
+                        hand()
+            writer.wait()
         finally:
+            reader.close()
+            writer.close()
             fin.close()
             fout.close()
 
@@ -261,7 +288,7 @@ class Compressor:
             )
         monitor.finish()
         info.process_time = process.total
-        info.io_time = io.total
+        info.io_time = io.total + reader.timer.total + writer.timer.total
         return info
 
 
@@ -337,6 +364,67 @@ def read_into(f, buf: np.ndarray) -> int:
     return got
 
 
+class _Lane:
+    """A thread that runs the drive loop's file jobs one at a time, in the
+    order they are handed to it: the reader's reads or the writer's
+    writes.  ``start`` hands it the next job once the last has ended;
+    ``wait`` returns the last job's result or raises its exception as it
+    was raised.  ``timer`` sums the seconds of its jobs.
+
+    Buffer lifetimes in the threaded drive loops.  The loop fetches
+    batch k - 1 before it hands out batch k + 1's buffers and submits
+    batch k, so the two slots of every buffer provider keep their rule
+    (a batch's buffers stay valid until two reads or submits later).
+    ``start`` waits for batch k - 2's write before batch k - 1's, and so
+    before batch k's submit and fetch, which reuse the slot of batch
+    k - 2's output (MeshCodec's ``out`` and ``blob``).
+
+    The waits poll the thread, so a thread that ended never leaves the
+    loop blocked, and ``close`` ends it once its job is done."""
+
+    POLL_S = 0.1
+
+    def __init__(self, name: str):
+        self.name = name
+        self.timer = SplitTimer()
+        self._jobs: queue.SimpleQueue = queue.SimpleQueue()
+        self._done = threading.Event()
+        self._done.set()
+        self._result: tuple = (None, None)
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name=f"gpuar-{name}")
+        self._thread.start()
+
+    def _run(self) -> None:
+        while (job := self._jobs.get()) is not None:
+            fn, args = job
+            try:
+                with self.timer:
+                    self._result = (fn(*args), None)
+            except BaseException as err:   # raised again by wait()
+                self._result = (None, err)
+            self._done.set()
+
+    def start(self, fn, *args) -> None:
+        self.wait()
+        self._done.clear()
+        self._jobs.put((fn, args))
+
+    def wait(self):
+        while not self._done.wait(self.POLL_S):
+            if not self._thread.is_alive():
+                raise RuntimeError(f"the {self.name} thread ended mid-job")
+        (value, err), self._result = self._result, (None, None)
+        if err is not None:
+            raise err
+        return value
+
+    def close(self) -> None:
+        """End the thread after its job (whose result is dropped)."""
+        self._jobs.put(None)
+        self._thread.join()
+
+
 def _splice(packets: np.ndarray, lengths: np.ndarray) -> np.ndarray:
     """Concatenate variable-length packets from a fixed-stride batch.
 
@@ -349,13 +437,16 @@ def _splice(packets: np.ndarray, lengths: np.ndarray) -> np.ndarray:
         return np.ascontiguousarray(packets)
     if packets.shape[0] == 0:
         return np.empty(0, np.uint8)
-    if (packets.flags.c_contiguous and lengths[0] == packets.shape[1]
-            and np.all(lengths == lengths[0])):
-        # Every packet fills its stride (every decompress batch except
-        # the file tail): the concatenation is the buffer itself — a
-        # reshaped VIEW, not a whole-body memcpy on the drive loop's
-        # process path.
-        return packets.reshape(-1)
+    stride = packets.shape[1]
+    if (packets.flags.c_contiguous and 0 <= lengths[-1] <= stride
+            and np.all(lengths[:-1] == stride)):
+        # Every packet but the last fills its stride (every decompress
+        # batch; the file's last packet may be short): the concatenation
+        # is the buffer's head, a VIEW, not a whole-body memcpy on the
+        # drive loop's process path.  A short packet before the last (the
+        # container allows one) takes the copy.
+        return packets.reshape(-1)[: (packets.shape[0] - 1) * stride
+                                   + int(lengths[-1])]
     return native.splice(packets, lengths)
 
 

@@ -11,6 +11,7 @@ device path.
 import io
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -565,3 +566,360 @@ def test_gpu_compress_uploads_pinned_data(cuda, tmp_path, monkeypatch,
         .compress(src, tmp_path / "gpu.gip")
     assert (tmp_path / "gpu.gip").read_bytes() == ref.read_bytes()
     assert seen == [(True, True)] * (1 + 2 * shards)
+
+
+# --- the drive loops on three threads ----------------------------------------
+
+def loop_threads() -> list:
+    """The drive loops' reader and writer threads still alive."""
+    import threading
+
+    return [t for t in threading.enumerate() if t.name.startswith("gpuar-")]
+
+
+def bounded(fn, *args, timeout: float = 120.0, **kw):
+    """fn(*args, **kw) on a thread of its own, joined with a timeout: its
+    result, or its exception raised again; a call that outlives the
+    timeout fails the test rather than hanging it."""
+    import threading
+
+    out = {}
+
+    def run():
+        try:
+            out["value"] = fn(*args, **kw)
+        except BaseException as err:   # raised again below
+            out["err"] = err
+
+    t = threading.Thread(target=run, name="test-call", daemon=True)
+    t.start()
+    t.join(timeout)
+    assert not t.is_alive(), f"{fn} did not end within {timeout} s"
+    if "err" in out:
+        raise out["err"]
+    return out["value"]
+
+
+class SlowFiles:
+    """``open`` for the pipeline module: each file's readinto and read
+    sleep ``read_s`` first and its write ``write_s``; the write numbered
+    ``fail_at`` (from 1, over every file) writes the first ``cut`` bytes
+    and raises OSError.  ``opened`` records every file, to check that
+    each was closed."""
+
+    def __init__(self, read_s=0.0, write_s=0.0, fail_at=None, cut=0):
+        self.read_s, self.write_s = read_s, write_s
+        self.fail_at, self.cut = fail_at, cut
+        self.writes = 0
+        self.opened = []
+
+    def open(self, *args, **kw):
+        files = self
+
+        class File:
+            def __init__(self, f):
+                self._f = f
+
+            def readinto(self, b):
+                time.sleep(files.read_s)
+                return self._f.readinto(b)
+
+            def read(self, *a):
+                time.sleep(files.read_s)
+                return self._f.read(*a)
+
+            def write(self, b):
+                time.sleep(files.write_s)
+                files.writes += 1
+                if files.writes == files.fail_at:
+                    self._f.write(memoryview(b).cast("B")[: files.cut])
+                    raise OSError(28, "No space left on device")
+                return self._f.write(b)
+
+            def __getattr__(self, name):
+                return getattr(self._f, name)
+
+            def __enter__(self):
+                return self
+
+            def __exit__(self, *exc):
+                self._f.close()
+
+        f = File(open(*args, **kw))
+        self.opened.append(f._f)
+        return f
+
+    def all_closed(self) -> bool:
+        return bool(self.opened) and all(f.closed for f in self.opened)
+
+
+@pytest.fixture
+def one_torch_thread():
+    """Torch's CPU ops on one thread for the test: the plain kernels' many
+    small ops on a pool of threads in each of several test processes
+    oversubscribe the cores (a hundred times slower)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def _slow(monkeypatch, **kw) -> SlowFiles:
+    from gpuar_tpu_torch import pipeline
+
+    files = SlowFiles(**kw)
+    monkeypatch.setattr(pipeline, "open", files.open, raising=False)
+    return files
+
+
+def _text_mixed(rng, size: int) -> bytes:
+    """Random bytes with every other 8192-byte packet text, so compressed
+    packet lengths vary."""
+    data = rng.integers(0, 256, size, np.uint8)
+    text = np.frombuffer(
+        (b"the quick brown fox jumps over the lazy dog. " * 200)[:P],
+        np.uint8)
+    for at in range(P, size, 2 * P):
+        n = min(P, size - at)
+        data[at: at + n] = text[:n]
+    return data.tobytes()
+
+
+def _threaded_case(tmp_path, backend: str, batches: int, ragged: bool):
+    """A file of ``batches`` compress super-batches of two 8192-byte
+    reads, its last packet ragged or not; the backend that compresses it,
+    the one that decompresses it, and the JAX package's archive of it:
+    HostCompressor's for the port's HostCompressor, and the JAX package's
+    sleep control's for the port's.  GPUCompressor on two CPU shards runs
+    at P = 64 (its plain kernels are slow at 8192 B) against the JAX
+    golden codec's body at 64; it decompresses 256 packets a batch, the
+    bytes of one compress read."""
+    from benchmarks.sleep_backend import SleepCompressor as JaxSleep
+    from gpuar_tpu_torch.bench.sleep_backend import SleepCompressor
+    from gpuar_tpu_torch.pipeline import HostCompressor as PortHost
+
+    size = (2 * batches - ragged) * P + 777 * ragged
+    data = _text_mixed(np.random.default_rng(batches * 2 + ragged), size)
+    src = tmp_path / "in.bin"
+    src.write_bytes(data)
+    if backend == "gpu":
+        return (GPUCompressor(devices=[CPU, CPU], packet_size=64,
+                              super_batch_packets=2),
+                GPUCompressor(devices=[CPU, CPU], packet_size=64,
+                              super_batch_packets=256),
+                data, src, _jax_archive(data, 64))
+    ref = tmp_path / "ref.gip"
+    if backend == "host":
+        port = PortHost(super_batch_packets=2)
+        HostCompressor(super_batch_packets=2).compress(src, ref)
+    else:
+        port = SleepCompressor(gbps=50.0, super_batch_packets=2)
+        JaxSleep(gbps=50.0, super_batch_packets=2).compress(src, ref)
+    return port, port, data, src, ref.read_bytes()
+
+
+@pytest.mark.parametrize("slow", ["read", "write"])
+@pytest.mark.parametrize("ragged", [False, True])
+@pytest.mark.parametrize("batches", [1, 2, 4])
+@pytest.mark.parametrize("backend", ["host", "sleep", "gpu"])
+def test_threaded_loops_with_slow_io(tmp_path, monkeypatch, one_torch_thread,
+                                     backend, batches, ragged, slow):
+    """With the reader or the writer slowed (each readinto or write sleeps
+    first), 1, 2 and 4 super-batches, ragged or not, give the JAX
+    package's archive and round-trip bit for bit; the accounting is the
+    archive's, every file is closed and no loop thread is left."""
+    port, unport, data, src, want = _threaded_case(tmp_path, backend,
+                                                   batches, ragged)
+    files = _slow(monkeypatch, **{f"{slow}_s": 0.004})
+    gip, back = tmp_path / "port.gip", tmp_path / "back.bin"
+    ci = bounded(port.compress, src, gip)
+    assert gip.read_bytes() == want
+    assert (ci.compressed_file_size, ci.processed_uncompressed_size) == \
+        (len(want), len(data))
+    di = bounded(unport.decompress, gip, back)
+    assert back.read_bytes() == data
+    assert di.processed_uncompressed_size == len(data)
+    assert files.all_closed()
+    assert loop_threads() == []
+
+
+@pytest.mark.parametrize("verb", ["compress", "decompress"])
+@pytest.mark.parametrize("backend", ["host", "gpu"])
+@pytest.mark.parametrize("fail_at", [1, 2, 3])
+def test_write_error_surfaces(tmp_path, monkeypatch, one_torch_thread,
+                              backend, verb, fail_at):
+    """An OSError from the writer thread's write (the first, a middle or
+    the last body write of three batches) surfaces from the call as it
+    was raised; every file is closed and no loop thread is left."""
+    port, unport, data, src, want = _threaded_case(tmp_path, backend, 3,
+                                                   True)
+    gip = tmp_path / "port.gip"
+    if verb == "decompress":
+        gip.write_bytes(want)
+        # The compress writes its zero header first; decompress does not.
+        fail_at -= 1
+    files = _slow(monkeypatch, write_s=0.002, fail_at=fail_at + 1, cut=5)
+    with pytest.raises(OSError, match="No space left on device"):
+        if verb == "compress":
+            bounded(port.compress, src, gip)
+        else:
+            bounded(unport.decompress, gip, tmp_path / "back.bin")
+    assert files.all_closed()
+    assert loop_threads() == []
+
+
+@pytest.mark.parametrize("backend", ["host", "gpu"])
+@pytest.mark.parametrize("cut", ["body", "header", "boundary"])
+def test_reader_error_surfaces(tmp_path, monkeypatch, one_torch_thread,
+                               backend, cut):
+    """A ContainerError from the reader thread (an archive cut inside the
+    third batch's packet body or header) or from the totals check (cut at
+    a packet boundary) surfaces with the JAX package's text, while the
+    writer still writes earlier batches; files closed, no loop thread
+    left."""
+    from gpuar_tpu import container as jax_container
+
+    _, port, data, src, want = _threaded_case(tmp_path, backend, 3, True)
+    at = container.HEADER_LENGTH
+    for _ in range(4):   # the fifth packet is in the last batch
+        at += want[at] | want[at + 1] << 8
+    bad = tmp_path / "bad.gip"
+    bad.write_bytes(want[: at + {"body": 9, "header": 2, "boundary": 0}[cut]])
+    with pytest.raises(jax_container.ContainerError) as theirs:
+        HostCompressor().decompress(bad, tmp_path / "jax.bin")
+    files = _slow(monkeypatch, write_s=0.003)
+    with pytest.raises(container.ContainerError) as ours:
+        bounded(port.decompress, bad, tmp_path / "back.bin")
+    assert str(ours.value) == str(theirs.value)
+    assert files.all_closed()
+    assert loop_threads() == []
+
+
+@pytest.mark.parametrize("backend", ["host", "gpu"])
+@pytest.mark.parametrize("cut", [0, 7, 4000])
+def test_resume_after_interrupted_threaded_compress(tmp_path, monkeypatch,
+                                                    one_torch_thread,
+                                                    backend, cut):
+    """A threaded compress whose third body write dies after ``cut``
+    bytes leaves a prefix that ``resume=True`` completes into the JAX
+    package's archive byte for byte."""
+    port, _, data, src, want = _threaded_case(tmp_path, backend, 4, True)
+    gip = tmp_path / "port.gip"
+    files = _slow(monkeypatch, write_s=0.002, fail_at=4, cut=cut)
+    with pytest.raises(OSError):
+        bounded(port.compress, src, gip)
+    assert files.all_closed()
+    monkeypatch.undo()
+    info = bounded(port.compress, src, gip, resume=True)
+    assert gip.read_bytes() == want
+    assert info.compressed_file_size == len(want)
+    assert loop_threads() == []
+
+
+def test_lane_hands_errors_back_and_never_waits_on_an_ended_thread():
+    """A job's exception is raised again by wait() as the same object; a
+    lane whose thread has ended raises at once instead of waiting."""
+    from gpuar_tpu_torch.pipeline import _Lane
+
+    lane = _Lane("probe")
+    err = container.ContainerError("Incorrect file format: probe")
+
+    def fail():
+        raise err
+
+    lane.start(fail)
+    with pytest.raises(container.ContainerError) as got:
+        lane.wait()
+    assert got.value is err
+    lane.start(sum, [1, 2, 3])
+    assert lane.wait() == 6
+    lane.close()
+    assert loop_threads() == []
+    lane._done.clear()   # as if a job had been handed to the ended thread
+    with pytest.raises(RuntimeError, match="probe thread ended"):
+        bounded(lane.wait, timeout=10)
+
+
+def test_threaded_loops_under_contention(tmp_path):
+    """Eight compress and decompress round trips at once (each with its
+    own reader and writer threads), the interpreter switching threads
+    every microsecond: every archive is the JAX package's and every round
+    trip exact (a lost or reordered write would break either)."""
+    import threading
+
+    from gpuar_tpu_torch.pipeline import HostCompressor as PortHost
+
+    data = _text_mixed(np.random.default_rng(0x5EED), 9 * P + 4321)
+    src = tmp_path / "in.bin"
+    src.write_bytes(data)
+    ref = tmp_path / "ref.gip"
+    HostCompressor(super_batch_packets=1).compress(src, ref)
+    results = {}
+
+    def round_trip(i):
+        gip, back = tmp_path / f"{i}.gip", tmp_path / f"{i}.bin"
+        port = PortHost(super_batch_packets=1)
+        port.compress(src, gip)
+        port.decompress(gip, back)
+        results[i] = (gip.read_bytes(), back.read_bytes())
+
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        workers = [threading.Thread(target=round_trip, args=(i,))
+                   for i in range(8)]
+        for w in workers:
+            w.start()
+        for w in workers:
+            w.join(120)
+        assert not any(w.is_alive() for w in workers)
+    finally:
+        sys.setswitchinterval(switch)
+    assert sorted(results) == list(range(8))
+    for gip, back in results.values():
+        assert gip == ref.read_bytes()
+        assert back == data
+    assert loop_threads() == []
+
+
+# --- the splice of a batch ----------------------------------------------------
+
+@pytest.mark.parametrize("last", [P, 1, 256, 8191])
+def test_splice_of_ragged_batch_is_a_view(monkeypatch, rng, last):
+    """When every packet but the last fills its stride, the body is a
+    view of the batch's head (no native.splice), equal to the spliced
+    bytes."""
+    from gpuar_tpu_torch import native, pipeline
+
+    calls = []
+    monkeypatch.setattr(native, "splice", lambda *a: calls.append(a))
+    batch = rng.integers(0, 256, (5, P), np.uint8)
+    sizes = np.array([P] * 4 + [last], np.int32)
+    body = pipeline._splice(batch, sizes)
+    assert calls == []
+    assert np.shares_memory(body, batch)
+    assert body.tobytes() == batch.reshape(-1)[: 4 * P + last].tobytes()
+
+
+@pytest.mark.parametrize("short_at", [0, 2, 3])
+def test_splice_with_short_packet_before_last_copies(monkeypatch, rng,
+                                                     short_at):
+    """A short packet before the last (the container allows one) takes
+    native.splice, and its bytes are the packets' heads in order."""
+    from gpuar_tpu_torch import native, pipeline
+
+    splice, calls = native.splice, []
+
+    def recording(packets, lengths):
+        calls.append(lengths.copy())
+        return splice(packets, lengths)
+
+    monkeypatch.setattr(native, "splice", recording)
+    batch = rng.integers(0, 256, (5, P), np.uint8)
+    sizes = np.array([P] * 4 + [300], np.int32)
+    sizes[short_at] = 1000
+    body = pipeline._splice(batch, sizes)
+    assert len(calls) == 1
+    assert not np.shares_memory(body, batch)
+    assert body.tobytes() == b"".join(batch[i, : sizes[i]].tobytes()
+                                      for i in range(5))
