@@ -51,7 +51,9 @@ exit, no result line):
      (``c --multihost``, then ``d``, then ``d --debug``) joined through
      RANK / WORLD_SIZE / MASTER_ADDR=127.0.0.1 / a free MASTER_PORT, both
      on the local card(s); each rank prints its kernel launches, which
-     must show K1 and K2 (K3 under debug) on both ranks; the archive
+     must show K1 and K2 (K3 under debug) on both ranks, and its
+     loop's coordination seconds and its reader's and writer's busy
+     seconds (the multi-host loops run on three threads); the archive
      equals the host archive and both decodes round-trip.  The rank
      processes import no JAX;
   8. the probes P1-P4: ``python -m gpuar_tpu_torch.probes`` as a user runs
@@ -74,16 +76,17 @@ exit, no result line):
      the executable specification, archive == host archive and, at full
      size, its pinned sha256, md5 round trip, then the kernel layer and
      end-to-end numbers), ``bench.run --mib 16``, ``bench.soak --iters
-     9`` with debug decode, and ``bench.scaling`` three times: the sleep
+     9`` with debug decode, and ``bench.scaling`` four times: the sleep
      control's compress (worlds 1 and 2 at the benchmark's measured
      compress rate); its decompress (``--mode d``, worlds 1, 2 and 4 at
      4 MiB a rank emulating 1 GiB in 16 segments, at the measured
-     decompress rate); and the GPU decompress at full width (``--backend
-     gpu --mode d``, worlds 1 and 2 at 128 MiB a rank in ``_smoke/``: two
-     64 MiB segments a rank, K2 on full launches, the owned-segment
-     submit-ahead running), whose ranks share the one card, so its
-     efficiencies are not a scaling figure.  Each decompress run checks
-     its decoded file against the input.
+     decompress rate); and the GPU compress and decompress at full width
+     (``--backend gpu --mode c`` and ``--mode d``, worlds 1 and 2 at 128
+     MiB a rank in ``_smoke/``: two 64 MiB super-batches or segments a
+     rank, K1 and K2 on full launches, the reader and writer threads
+     running), whose ranks share the one card, so their efficiencies
+     are not a scaling figure.  Each decompress run checks its decoded
+     file against the input.
 
     python3 chip_smoke.py --profile
 
@@ -697,15 +700,24 @@ def phase6(card, src, errs):
 
 
 # One rank of phase 7: the port's CLI as a user runs it, then one JSON line
-# with this process's kernel launches.
+# with this process's kernel launches and its DistributedCompressor's
+# coordination and lane seconds (recorded as the CLI builds it).
 RANK_MAIN = """
 import json, os, sys
 from gpuar_tpu_torch import cli
 from gpuar_tpu_torch.ops import _kernels
+from gpuar_tpu_torch.parallel import distributed
+made, init = [], distributed.DistributedCompressor.__init__
+def recording(self, *args, **kw):
+    init(self, *args, **kw)
+    made.append(self)
+distributed.DistributedCompressor.__init__ = recording
 rc = cli.main(sys.argv[1:])
 assert "jax" not in sys.modules, "the rank imported jax"
 print(json.dumps({"rank": int(os.environ["RANK"]),
-                  "launches": _kernels.LAUNCHES}), flush=True)
+                  "launches": _kernels.LAUNCHES,
+                  "coord_s": made[-1].coord.total,
+                  "lanes_s": made[-1].lane_seconds}), flush=True)
 sys.exit(rc)
 """
 
@@ -771,9 +783,12 @@ def phase7(card, src):
             if mine["rank"] != rank or mine["launches"][kernel] <= 0:
                 raise AssertionError(f"{name}: rank {rank} did not launch "
                                      f"{kernel}: {mine}")
+            lanes = mine["lanes_s"]
             print(f"[{card}] world 2 {name} rank {rank}: launches "
                   f"{mine['launches']}; process {info['process_time_s']} s, "
-                  f"io {info['io_time_s']} s, rank exited after "
+                  f"io {info['io_time_s']} s (reader {lanes['reader']:.6f}"
+                  f" s, writer {lanes['writer']:.6f} s), coord "
+                  f"{mine['coord_s']:.6f} s, rank exited after "
                   f"{seconds:.3f} s wall ({size} B file; both ranks share "
                   f"the card(s), process start-up included: not a scaling "
                   f"figure)", flush=True)
@@ -1665,6 +1680,9 @@ HARNESSES = (
                          "sleep", "--mode", "d", "--worlds", "1,2,4",
                          "--per-host-mib", "4", "--emulate-gib", "1",
                          "--segments-per-host", "16"], "decompress_gbps"),
+    ("scaling gpu c", ["gpuar_tpu_torch.bench.scaling", "--backend", "gpu",
+                       "--mode", "c", "--worlds", "1,2", "--per-host-mib",
+                       "128", "--tmpdir", str(WORK)], None),
     ("scaling gpu d", ["gpuar_tpu_torch.bench.scaling", "--backend", "gpu",
                        "--mode", "d", "--worlds", "1,2", "--per-host-mib",
                        "128", "--tmpdir", str(WORK)], None),

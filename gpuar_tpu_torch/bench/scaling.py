@@ -46,9 +46,18 @@ Three efficiencies, as the JAX harness reports them:
   * serialized_efficiency = N * wall_1 / wall_N: wall efficiency against
     the ideal time-sliced schedule of a shared machine;
   * projected_efficiency = t_chip / (t_chip + coord_N), with coord_N the
-    measured coordination residual (wall - process - io) and t_chip the
-    per-process codec time at ``--chip-gbps`` (of ``--emulate-gib`` GiB
-    where given).
+    slowest rank's coordination seconds and t_chip the per-process codec
+    time at ``--chip-gbps`` (of ``--emulate-gib`` GiB where given).
+
+coord is where the port's harness differs from the JAX one.  There it is
+the residual wall - process - io.  The port's multi-host loops read and
+write on a reader and a writer thread beside the loop's thread, and io
+counts those threads' busy seconds, so io can pass wall - process and
+the residual would clamp to 0 (a false projected efficiency of 1.0).  So
+coord here is measured: the seconds the rank's loop thread spent in the
+collectives, the barriers and the waits on the segment prefetcher
+(``DistributedCompressor.coord``).  Each world's printed line also gives
+the slowest rank's reader and writer busy seconds and ``cpu_total``.
 
 ``--chip-gbps`` has no default: pass the port's measured one-card rate of
 the verb timed, ``compress_gbps`` or ``decompress_gbps`` of ``python -m
@@ -76,6 +85,9 @@ ROOT = Path(__file__).resolve().parents[2]   # holds gpuar_tpu_torch/
 RUN_WORKER = ("import sys; from gpuar_tpu_torch.bench import scaling; "
               "scaling.worker(*sys.argv[1:])")
 WORKER_TIMEOUT_S = 300
+# The lanes' busy seconds: printed beside coord, kept out of the JSON
+# (whose shape is the JAX harness's).
+LANES = ("reader", "writer")
 GIB = 1 << 30
 
 
@@ -100,8 +112,8 @@ def worker(tmp: str, backend: str, chip_gbps: str, time_scale: str,
            mode: str, sleep_sbp: str) -> None:
     """One rank: join the world from the environment, warm up, meet at a
     barrier, time one compress (mode c) or decompress (mode d) of the
-    shared file, and write ``rank{R}.json`` (wall, CPU, process, io and
-    coordination seconds)."""
+    shared file, and write ``rank{R}.json`` (wall, CPU, process, io,
+    coordination and the reader's and writer's busy seconds)."""
     import resource
 
     import torch.distributed as dist
@@ -144,7 +156,7 @@ def worker(tmp: str, backend: str, chip_gbps: str, time_scale: str,
     cpu = (c1.ru_utime - c0.ru_utime) + (c1.ru_stime - c0.ru_stime)
     res = dict(rank=rank, world=world, wall=wall, cpu=cpu,
                process=info.process_time, io=info.io_time,
-               coord=max(wall - info.process_time - info.io_time, 0.0))
+               coord=d.coord.total, **d.lane_seconds)
     with open(f"{tmp}/rank{rank}.json", "w") as f:
         json.dump(res, f)
     if dist.is_initialized():
@@ -196,8 +208,8 @@ def run_world(world: int, per_host_bytes: int, backend: str,
               mode: str = "c", sleep_sbp: int = 8192) -> dict:
     """Ranks 0..world-1 of one world, each coding ``per_host_bytes`` of a
     random file (seed 0x5CA1E) -> the slowest rank's wall, coordination,
-    process and io seconds, and the CPU seconds of all ranks.  In mode d
-    the decoded file must equal the input."""
+    process, io, reader and writer seconds, and the CPU seconds of all
+    ranks.  In mode d the decoded file must equal the input."""
     import numpy as np
 
     with tempfile.TemporaryDirectory(dir=tmpdir) as tmp:
@@ -236,6 +248,7 @@ def run_world(world: int, per_host_bytes: int, backend: str,
         "coord": max(r["coord"] for r in ranks),
         "process": max(r["process"] for r in ranks),
         "io": max(r["io"] for r in ranks),
+        **{lane: max(r[lane] for r in ranks) for lane in LANES},
         # CPU burned across ranks inside the timed region: the part that
         # serialises on a shared machine (the sleep control keeps it far
         # under the wall time).
@@ -336,14 +349,17 @@ def main(argv=None) -> dict:
                           mode=args.mode, sleep_sbp=sleep_sbp)
                 for _ in range(reps)]
         r = min(runs, key=lambda x: x["wall"])
+        lanes = " ".join(f"{k}={r.pop(k):.6f}s" for k in LANES if k in r)
         rows.append(r)
         note = ""
         if args.backend == "gpu" and w > cards:
             note = (f"; {w} ranks share {cards} card(s): not a scaling "
                     "figure")
-        print(f"world={w}: wall={r['wall']:.3f}s process={r['process']:.3f}s "
-              f"io={r['io']:.3f}s coord={r['coord']:.3f}s "
-              f"(min of {reps}{note})", flush=True)
+        print(f"world={w}: wall={r['wall']:.6f}s "
+              f"process={r['process']:.6f}s io={r['io']:.6f}s "
+              f"coord={r['coord']:.6f}s {lanes} "
+              f"cpu_total={r['cpu_total']:.6f}s (min of {reps}{note})",
+              flush=True)
 
     out = {
         "metric": "weak scaling (fixed per-host work)",

@@ -13,7 +13,7 @@ processes that build at once (test workers in a fresh checkout) never see
 one another's half-written library.
 
 Every entry point of the JAX package's loader is bound, under its name;
-``walk_packets`` is the port's own.
+``walk_packets`` and ``expand_at``'s ``out=`` are the port's own.
 """
 
 from __future__ import annotations
@@ -257,19 +257,34 @@ def splice_at(blob: np.ndarray, offsets: np.ndarray, lengths: np.ndarray,
 
 
 def expand_at(body: np.ndarray, offsets: np.ndarray, lengths: np.ndarray,
-              blob_cap: int) -> np.ndarray:
+              blob_cap: int, out: np.ndarray | None = None) -> np.ndarray:
     """Scatter back-to-back packets to aligned blob offsets (the decode
-    upload blob): blob[offsets[i]:+lengths[i]] = the next body bytes."""
+    upload blob): blob[offsets[i]:+lengths[i]] = the next body bytes, the
+    rest of the blob zeros; the offsets ascend without overlap.
+
+    ``out``: a flat C-contiguous uint8 array of at least blob_cap bytes to
+    build the blob in (a reused upload buffer), in place of a new one;
+    the result is a view of its head.  Every byte no packet covers is
+    zeroed, so the blob is the same whatever ``out`` held."""
     lib = load()
     body = np.ascontiguousarray(body, dtype=np.uint8).reshape(-1)
     offsets = np.ascontiguousarray(offsets, dtype=np.int64)
     lengths = np.ascontiguousarray(lengths, dtype=np.int32)
-    blob = np.zeros(blob_cap, dtype=np.uint8)
+    if out is None:
+        blob = np.empty(blob_cap, dtype=np.uint8)
+    elif (out.dtype != np.uint8 or out.ndim != 1
+          or not out.flags.c_contiguous or not out.flags.writeable
+          or out.size < blob_cap):
+        raise ValueError(f"expand_at: out must be a writable flat uint8 "
+                         f"array of at least {blob_cap} B")
+    else:
+        blob = out[:blob_cap]
     r = lib.tg_expand_at(_u8p(body), body.size, _i64p(offsets),
                          _i32p(lengths), lengths.shape[0], _u8p(blob),
                          blob.size)
     if r < 0:
-        raise ValueError("expand_at: offset/length out of range")
+        raise ValueError("expand_at: offset/length out of range, or "
+                         "offsets not ascending")
     return blob
 
 

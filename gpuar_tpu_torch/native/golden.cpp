@@ -636,18 +636,25 @@ long tg_splice_at(const uint8_t* blob, long blob_len, const long* offsets,
 
 // Scatter packets from a back-to-back body into aligned blob offsets
 // (the decode-side mirror: one pass builds the device upload buffer).
+// The offsets ascend without overlap, and every byte of blob[0, blob_cap)
+// that no packet covers (the gap after each packet and the tail) is
+// zeroed, so the blob is the same whatever the buffer held (a reused
+// upload buffer): each byte is written once.
 long tg_expand_at(const uint8_t* body, long body_len, const long* offsets,
                   const int* lengths, long n, uint8_t* blob,
                   long blob_cap) {
-  long r = 0;
+  long r = 0, end = 0;
   for (long i = 0; i < n; ++i) {
     const long len = lengths[i];
-    if (len < 0 || r + len > body_len || offsets[i] < 0 ||
+    if (len < 0 || r + len > body_len || offsets[i] < end ||
         offsets[i] + len > blob_cap)
       return -1;
+    std::memset(blob + end, 0, static_cast<size_t>(offsets[i] - end));
     std::memcpy(blob + offsets[i], body + r, static_cast<size_t>(len));
     r += len;
+    end = offsets[i] + len;
   }
+  std::memset(blob + end, 0, static_cast<size_t>(blob_cap - end));
   return r;
 }
 

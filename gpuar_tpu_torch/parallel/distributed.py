@@ -25,6 +25,13 @@ two ranks that share one card cannot form an NCCL group.  The segment
 stream's broadcasts run on a prefetch thread, so they get a gloo group of
 their own: two threads never share one group's collective sequence.
 
+Both loops run on three threads, on the local drive loops' terms
+(``pipeline.Compressor``, ``pipeline._Lane``): a reader thread reads the
+next batch into the backend's upload buffer (compress) or builds the
+next owned segment's blob in the buffer ``decode_blob_buffer`` hands out
+(decompress), and a writer thread appends each body to the rank's spool
+or writes each decoded segment at its raw offset.
+
 A world of one (nothing configured) runs the local pipeline's bytes with
 no collective at all.
 """
@@ -33,7 +40,9 @@ from __future__ import annotations
 
 import itertools
 import os
+import queue
 import tempfile
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -46,7 +55,12 @@ from gpuar_tpu_torch.config import (
     PACKET_HEADER_LENGTH,
     UNCOMPRESSED_PACKET_SIZE,
 )
-from gpuar_tpu_torch.pipeline import _splice, read_into
+from gpuar_tpu_torch.pipeline import (
+    _Lane,
+    _splice,
+    blob_capacity,
+    read_into,
+)
 from gpuar_tpu_torch.utils.stats import (
     CompressionInfo,
     ProgressMonitor,
@@ -265,9 +279,24 @@ class DistributedCompressor:
     The local codec work goes to a per-process ``pipeline.Compressor``
     backend, by default GPUCompressor on this process's local GPUs.
     Decode hands each owned segment to the backend's compacted-blob
-    interface (``decode_blob_geometry``, ``decode_submit_blob``) where it
-    has one, and to ``decode_submit`` as a fixed-stride batch where it has
-    not (HostCompressor, the sleep control).
+    interface (``decode_blob_geometry``, ``decode_blob_buffer``,
+    ``decode_submit_blob``) where it has one, with the blob built in the
+    buffer ``decode_blob_buffer`` hands out, and to ``decode_submit`` as
+    a fixed-stride batch where it has not (HostCompressor, the sleep
+    control).
+
+    Both loops run on three threads, as the local drive loops do
+    (``pipeline.Compressor``): for batch or owned segment k this thread
+    fetches k - 1 and hands its body to a writer thread, waits for the
+    reader thread's k and submits it, then hands the reader k + 1.  Every
+    backend call and every collective stays on this thread (the segment
+    stream's broadcasts on the prefetch thread, in stream order).
+
+    After each call ``coord`` is a SplitTimer of the seconds this thread
+    spent in collectives, barriers and waits on the segment prefetcher,
+    and ``lane_seconds`` the reader's and the writer's busy seconds
+    (which ``CompressionInfo.io_time`` also counts, beside the walk waits
+    and the loop thread's own file work).
     """
 
     def __init__(self, backend=None):
@@ -277,6 +306,19 @@ class DistributedCompressor:
             backend = GPUCompressor()
         self.backend = backend
         self._stream_group = None
+        self.coord = SplitTimer()
+        self.lane_seconds = {"reader": 0.0, "writer": 0.0}
+        # The reader's segment bytes: it does one job at a time, so one
+        # array serves every segment.
+        self._segment_bytes = np.empty(0, np.uint8)
+
+    def _finish(self, info: CompressionInfo, process: SplitTimer,
+                io: SplitTimer, reader: _Lane, writer: _Lane) -> None:
+        """A call's seconds into info and ``lane_seconds``."""
+        info.process_time = process.total
+        info.io_time = io.total + reader.timer.total + writer.timer.total
+        self.lane_seconds = {"reader": reader.timer.total,
+                             "writer": writer.timer.total}
 
     def compress(self, src: str | Path, dst: str | Path,
                  monitor: ProgressMonitor | None = None,
@@ -294,12 +336,13 @@ class DistributedCompressor:
         monitor.reset()
         info = CompressionInfo()
         process, io = SplitTimer(), SplitTimer()
+        coord = self.coord = SplitTimer()
         info.uncompressed_file_size = os.path.getsize(src)
         start, stop = host_ranges(info.uncompressed_file_size, world)[rank]
         local = CompressionInfo(uncompressed_file_size=stop - start)
 
-        # Encode this rank's range, spooling the spliced body to a temp
-        # file so memory stays bounded by one super-batch.
+        # Encode this rank's range, the writer spooling the spliced body
+        # to a temp file so memory stays bounded by one super-batch.
         batch = self.backend.super_batch_packets * UNCOMPRESSED_PACKET_SIZE
         with open(src, "rb") as fin, \
                 tempfile.TemporaryFile(dir=os.path.dirname(
@@ -308,37 +351,49 @@ class DistributedCompressor:
                 fin.seek(start)
             todo = stop - start
             body_size = 0
-            # Submit-ahead, as in the local drive loop: the devices run
-            # batch N+1 while this rank spools batch N.
-            pending = None  # (handle, chunk_len)
-            while todo > 0 or pending is not None:
-                handle = None
-                if todo > 0:
+            reader, writer = _Lane("reader"), _Lane("writer")
+            try:
+                def hand():
+                    """Start the reader on the next batch, read into the
+                    backend's buffer; -> (the buffer, its bytes)."""
                     want = min(batch, todo)
                     with io:
-                        buf = self.backend.encode_buffer(want)
-                        got = read_into(fin, buf[:want])
-                    todo -= got
-                    if got:
+                        buf = self.backend.encode_buffer(want)[:want]
+                    reader.start(read_into, fin, buf)
+                    return buf, want
+
+                if todo > 0:
+                    buf, want = hand()
+                pending = None  # (handle, chunk_len)
+                while todo > 0 or pending is not None:
+                    if pending is not None:
+                        h, chunk_len = pending
                         with process:
-                            handle = (self.backend.encode_submit(buf[:got]),
-                                      got)
-                    else:
-                        todo = 0
-                if pending is not None:
-                    h, chunk_len = pending
-                    with process:
-                        packets, lengths = self.backend.encode_fetch(h)
-                        piece = _splice(packets, lengths)
-                    with io:
-                        spool.write(piece)
-                    body_size += len(piece)
-                    local.processed_uncompressed_size += chunk_len
-                    monitor.update(local)
-                pending = handle
+                            packets, lengths = self.backend.encode_fetch(h)
+                            piece = _splice(packets, lengths)
+                        writer.start(spool.write, piece)
+                        body_size += len(piece)
+                        local.processed_uncompressed_size += chunk_len
+                        monitor.update(local)
+                        pending = None
+                    if todo > 0:
+                        got = reader.wait()
+                        if got:
+                            with process:
+                                pending = (self.backend.encode_submit(
+                                    buf[:got]), got)
+                        # A short read is the file's end: the range ends.
+                        todo = todo - got if got == want else 0
+                        if todo > 0:
+                            buf, want = hand()
+                writer.wait()
+            finally:
+                reader.close()
+                writer.close()
 
             # Metadata exchange: sizes -> offsets; ordered parallel splice.
-            sizes = _allgather_sizes(body_size)
+            with coord:
+                sizes = _allgather_sizes(body_size)
             offsets = exclusive_scan(sizes) + container.HEADER_LENGTH
             total = int(container.HEADER_LENGTH + sizes.sum())
             info.compressed_file_size = total
@@ -350,24 +405,37 @@ class DistributedCompressor:
                     f.write(container.FileHeader(
                         uncompressed_size=info.uncompressed_file_size,
                         compressed_size=total).to_bytes())
-            _barrier()  # the header is written and the file sized
+            with coord:
+                _barrier()  # the header is written and the file sized
             with io, open(dst, "r+b") as f:
                 f.seek(int(offsets[rank]))
                 spool.seek(0)
                 while blk := spool.read(64 << 20):
                     f.write(blk)
-        _barrier()  # every body is written
+        with coord:
+            _barrier()  # every body is written
         monitor.finish()
-        info.process_time = process.total
-        info.io_time = io.total
+        self._finish(info, process, io, reader, writer)
         return info
+
+    def _segment_array(self, nbytes: int) -> np.ndarray:
+        """The reused array the reader reads a segment's body into, at
+        least nbytes: grown, on this thread between the reader's jobs, to
+        the most a segment of super-batch packets can hold."""
+        if self._segment_bytes.size < nbytes:
+            self._segment_bytes = np.empty(max(
+                nbytes, self.backend.super_batch_packets
+                * COMPRESSED_PACKET_SIZE), np.uint8)
+        return self._segment_bytes
 
     def decompress(self, src: str | Path, dst: str | Path,
                    monitor: ProgressMonitor | None = None) -> CompressionInfo:
         rank, world = process_info()
+        coord = self.coord = SplitTimer()
         if world > 1 and self._stream_group is None:
             # Collective: every rank creates it on its first decompress.
-            self._stream_group = dist.new_group(backend="gloo")
+            with coord:
+                self._stream_group = dist.new_group(backend="gloo")
         monitor = monitor or ProgressMonitor(enabled=False)
         monitor.enabled = monitor.enabled and rank == 0
         monitor.reset()
@@ -384,13 +452,17 @@ class DistributedCompressor:
             # Rank 0 walks the packet headers and broadcasts the index one
             # super-batch segment at a time as it walks; segments are
             # owned round-robin (segment s -> rank s % world), and every
-            # rank starts decoding after the first segment.
+            # rank starts decoding after the first segment.  Only the
+            # reader touches ``body``'s file.
             body = _BodyView(fin, container.HEADER_LENGTH)
             body_size = header.compressed_size - container.HEADER_LENGTH
             chunkp = self.backend.super_batch_packets
             blob_geom = getattr(self.backend, "decode_blob_geometry", None)
             if blob_geom is not None:
                 blob_geom = blob_geom()
+                submit = self.backend.decode_submit_blob
+            else:
+                submit = self.backend.decode_submit
             # Progress is global: segment raw offsets come from the walked
             # index, so the end offset of the last segment this rank
             # finished covers every earlier segment, whoever owned it.
@@ -400,9 +472,11 @@ class DistributedCompressor:
             if rank == 0:
                 with io, open(dst, "wb") as f:
                     f.truncate(info.uncompressed_file_size)
-            _barrier()  # the output exists at its full size
+            with coord:
+                _barrier()  # the output exists at its full size
 
             raw_total = 0
+            seg_no = 0
             with open(dst, "r+b") as fout, open(src, "rb") as fwalk:
                 # The walk and its broadcasts run on a prefetch thread with
                 # their own file handle (a shared fd would race seeks with
@@ -410,51 +484,66 @@ class DistributedCompressor:
                 segs = _IterPrefetcher(_segment_stream(
                     _BodyView(fwalk, container.HEADER_LENGTH), body_size,
                     rank, world, chunkp, group=self._stream_group))
-                pending = None  # (handle, raw_sizes, raw_lo, raw_hi)
+                reader, writer = _Lane("reader"), _Lane("writer")
+                try:
+                    def next_owned():
+                        """The next segment this rank owns, or None at
+                        the stream's end; the raw total follows every
+                        segment, owned or not."""
+                        nonlocal raw_total, seg_no
+                        while True:
+                            with io, coord:
+                                seg = next(segs, None)
+                            if seg is None:
+                                return None
+                            raw_total = int(seg[1, -1])
+                            seg_no += 1
+                            if (seg_no - 1) % world == rank:
+                                return seg
 
-                def _drain(p):
-                    h, raw_sizes, raw_lo, raw_hi = p
-                    with process:
-                        piece = _splice(self.backend.decode_fetch(h),
-                                        raw_sizes)
-                    with io:
-                        fout.seek(raw_lo)
-                        fout.write(piece)
-                    local.processed_uncompressed_size = raw_hi
-                    monitor.update(local)
+                    def hand(seg):
+                        """Start the reader on an owned segment: its blob
+                        built in the buffer decode_blob_buffer hands out
+                        (GPUCompressor: the pinned one the upload reads),
+                        or a fixed-stride batch."""
+                        data = self._segment_array(
+                            int(seg[0, -1] - seg[0, 0]))
+                        if blob_geom is None:
+                            reader.start(_load_segment, body, seg, data)
+                            return
+                        with io:
+                            out = self.backend.decode_blob_buffer(
+                                blob_capacity(chunkp, *blob_geom))
+                        reader.start(_load_segment_blob, body, seg,
+                                     *blob_geom, out, data)
 
-                seg_no = 0
-                while True:
-                    with io:
-                        seg = next(segs, None)
-                    if seg is None:
-                        break
-                    raw_total = int(seg[1, -1])
-                    if seg_no % world == rank:
-                        # Fetch the previous owned segment only once this
-                        # one is submitted, so the device decodes N+world
-                        # while this rank writes N.
-                        if blob_geom is not None:
-                            with io:
-                                ublob, roff, clen, raw_sizes = \
-                                    _load_segment_blob(body, seg, *blob_geom)
-                            with process:
-                                h = self.backend.decode_submit_blob(
-                                    ublob, roff, clen, raw_sizes)
-                        else:
-                            with io:
-                                packets, raw_sizes = _load_segment(body, seg)
-                            with process:
-                                h = self.backend.decode_submit(packets,
-                                                               raw_sizes)
-                        handle = (h, raw_sizes, int(seg[1, 0]),
-                                  int(seg[1, -1]))
+                    seg = next_owned()
+                    if seg is not None:
+                        hand(seg)
+                    pending = None  # (handle, raw_sizes, raw_lo, raw_hi)
+                    while seg is not None or pending is not None:
                         if pending is not None:
-                            _drain(pending)
-                        pending = handle
-                    seg_no += 1
-                if pending is not None:
-                    _drain(pending)
+                            h, raw_sizes, raw_lo, raw_hi = pending
+                            with process:
+                                piece = _splice(self.backend.decode_fetch(h),
+                                                raw_sizes)
+                            writer.start(_write_at, fout, raw_lo, piece)
+                            local.processed_uncompressed_size = raw_hi
+                            monitor.update(local)
+                            pending = None
+                        if seg is not None:
+                            loaded = reader.wait()
+                            with process:
+                                pending = (submit(*loaded), loaded[-1],
+                                           int(seg[1, 0]), int(seg[1, -1]))
+                            seg = next_owned()
+                            if seg is not None:
+                                hand(seg)
+                    writer.wait()
+                finally:
+                    reader.close()
+                    writer.close()
+                    segs.close()
             if raw_total != header.uncompressed_size:
                 raise container.ContainerError(
                     "Incorrect file format: packet raw sizes total "
@@ -462,16 +551,22 @@ class DistributedCompressor:
                     f"{header.uncompressed_size}")
         # The stream is drained (its thread done, all its broadcasts
         # issued) before this barrier.
-        _barrier()  # every segment is written
+        with coord:
+            _barrier()  # every segment is written
         # The final segments may be owned by other ranks; print the
         # remaining deciles before the closing line.
         local.processed_uncompressed_size = local.uncompressed_file_size
         monitor.update(local)
         monitor.finish()
         info.processed_uncompressed_size = info.uncompressed_file_size
-        info.process_time = process.total
-        info.io_time = io.total
+        self._finish(info, process, io, reader, writer)
         return info
+
+
+def _write_at(f, offset: int, data) -> None:
+    """The decompress writer's job: data at byte ``offset`` of f."""
+    f.seek(offset)
+    f.write(data)
 
 
 class _IterPrefetcher:
@@ -484,28 +579,38 @@ class _IterPrefetcher:
     stays valid: each rank issues the stream's collectives from exactly
     one thread, in stream order, and the main loop drains the stream to
     exhaustion (thread done, all collectives issued) before the final
-    barrier.  Iterator errors re-raise on the consumer side."""
+    barrier.  Iterator errors re-raise on the consumer side.  ``close``
+    stops the thread after its current step on a loop that ends early."""
 
     _DONE = object()
+    CLOSE_S = 60.0
 
     def __init__(self, it, depth: int = 8):
-        import queue
-        import threading
-
         self._q = queue.Queue(maxsize=depth)
         self._err = None
-        self._t = threading.Thread(
-            target=self._run, args=(it,), daemon=True)
+        self._stop = threading.Event()
+        self._t = threading.Thread(target=self._run, args=(it,),
+                                   daemon=True, name="gpuar-walk")
         self._t.start()
 
     def _run(self, it):
         try:
             for item in it:
-                self._q.put(item)
+                if not self._put(item):
+                    return
         except BaseException as exc:  # re-raised on the consumer thread
             self._err = exc
-        finally:
-            self._q.put(self._DONE)
+        self._put(self._DONE)
+
+    def _put(self, item) -> bool:
+        """Queue item; False once closed (the queue may stay full)."""
+        while not self._stop.is_set():
+            try:
+                self._q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                pass
+        return False
 
     def __iter__(self):
         return self
@@ -518,6 +623,13 @@ class _IterPrefetcher:
                 raise self._err
             raise StopIteration
         return item
+
+    def close(self) -> None:
+        """Stop the thread after its current step (a block of the walk,
+        or a broadcast, which ends once the peers take part or fail) and
+        join it, for at most CLOSE_S seconds."""
+        self._stop.set()
+        self._t.join(self.CLOSE_S)
 
 
 class _BodyView:
@@ -533,31 +645,41 @@ class _BodyView:
     def read(self, n: int) -> bytes:
         return self._stream.read(n)
 
+    def readinto(self, b) -> int:
+        return self._stream.readinto(b)
 
-def _read_segment(body: "_BodyView", seg: np.ndarray):
+
+def _read_segment(body: "_BodyView", seg: np.ndarray,
+                  data: np.ndarray | None = None):
     """One walked segment's body bytes -> (data uint8, comp_len int32 [k],
-    raw_sizes int32 [k]).  The walk validates headers only, so a body cut
+    raw_sizes int32 [k]).  ``data``: a flat uint8 array to ``readinto``
+    (reused segment after segment; the bytes are a view of its head),
+    by default a new one.  The walk validates headers only, so a body cut
     off mid-packet is first seen here."""
     off = seg[0]
     comp_len = np.diff(off).astype(np.int32)
     raw_sizes = np.diff(seg[1]).astype(np.int32)
     base = int(off[0])
+    size = int(off[-1]) - base
+    if data is None:
+        data = np.empty(size, np.uint8)
     body.seek(base)
-    data = body.read(int(off[-1]) - base)
-    if len(data) < int(off[-1]) - base:
+    if read_into(body, data[:size]) < size:
         raise container.ContainerError(
             "Incorrect file format: truncated packet body"
         )
-    return np.frombuffer(data, np.uint8), comp_len, raw_sizes
+    return data[:size], comp_len, raw_sizes
 
 
-def _load_segment(body: "_BodyView", seg: np.ndarray):
+def _load_segment(body: "_BodyView", seg: np.ndarray,
+                  data: np.ndarray | None = None):
     """Load one walked index segment ([2, k+1] absolute offsets) into a
     fixed-stride batch for ``decode_submit``: (packets uint8 [k,
     COMPRESSED_PACKET_SIZE], each packet's framed bytes at the start of
     its row and zeros after them; raw_sizes int32 [k]).  One
-    ``native.expand_at`` scatter builds it, not a loop over packets."""
-    data, comp_len, raw_sizes = _read_segment(body, seg)
+    ``native.expand_at`` scatter builds it, not a loop over packets;
+    ``data`` as ``_read_segment``'s."""
+    data, comp_len, raw_sizes = _read_segment(body, seg, data)
     k = comp_len.shape[0]
     stride = COMPRESSED_PACKET_SIZE
     packets = native.expand_at(data, np.arange(k, dtype=np.int64) * stride,
@@ -566,13 +688,21 @@ def _load_segment(body: "_BodyView", seg: np.ndarray):
 
 
 def _load_segment_blob(body: "_BodyView", seg: np.ndarray,
-                       row_bytes: int, bucket_rows: int):
+                       row_bytes: int, bucket_rows: int,
+                       out: np.ndarray | None = None,
+                       data: np.ndarray | None = None):
     """Load one walked index segment straight into the row-aligned device
     upload blob (pipeline._PacketReader.read_batch_blob's twin): the
     segment body read IS the dense packet concatenation, so a single
-    native.expand_at scatter builds the blob.  Returns (blob, row_offsets,
-    comp_len, raw_sizes) for backend.decode_submit_blob."""
-    data, comp_len, raw_sizes = _read_segment(body, seg)
+    native.expand_at scatter builds the blob.  ``out``: a flat uint8
+    array to build it in (the backend's ``decode_blob_buffer``, reused
+    batch after batch), by default a new one; every byte K2 may read, the
+    tail of each packet's last row and the bucket's padding rows, is
+    written, so stale bytes in ``out`` never show.  ``data`` as
+    ``_read_segment``'s.  Returns (blob, row_offsets, comp_len,
+    raw_sizes) for backend.decode_submit_blob, the blob a view of
+    ``out``'s head when given."""
+    data, comp_len, raw_sizes = _read_segment(body, seg, data)
     n = comp_len.shape[0]
     rcnt = (comp_len + row_bytes - 1) // row_bytes
     roff = np.zeros(n, np.int32)
@@ -580,5 +710,5 @@ def _load_segment_blob(body: "_BodyView", seg: np.ndarray,
     rows = int(roff[-1] + rcnt[-1]) if n else 0
     kb = -(-max(rows, 1) // bucket_rows) * bucket_rows
     blob = native.expand_at(data, roff.astype(np.int64) * row_bytes,
-                            comp_len, kb * row_bytes)
+                            comp_len, kb * row_bytes, out=out)
     return blob, roff, comp_len, raw_sizes
