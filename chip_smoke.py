@@ -20,7 +20,9 @@ exit, no result line):
      golden codec, on boundary sizes and content classes at 8192 B;
   3. K2 (decode) against its plain version from a compacted blob, and K3
      (debug decode) on clean and noise-bodied packets: equal flags, and
-     ContainerError for exactly the corrupt packets;
+     ContainerError for exactly the corrupt packets, in the row blob and
+     in the dense blob (the packets back to back, as the drive loops read
+     them);
   4. the main path: a 160 MiB + 12,345 B mixed file through
      GPUCompressor().compress / .decompress, whose super-batch must be the
      card's (``runner.card_batch_packets``: the SMs and the codec kernels'
@@ -29,9 +31,16 @@ exit, no result line):
      the host archive decoded on the GPU and by the debug decoder; the
      kernels' launch counts over that run;
   5. the kernels at the main path's shapes: each kernel timed (CUDA
-     events) on each of the file's super-batches as phase 4 cut them, and
-     held against its plain version on the same card tensors at 0
-     tolerance on the full batch 0 and the ragged last batch; on batch 0
+     events) on each of the file's super-batches as phase 4 cut them, K2
+     and K3 on the batch's dense blob, which ``read_batch_dense`` reads
+     from phase 4's archive as the drive loop does (its block, two
+     buffers in turn, the carry moved between them; some read must end
+     inside a packet and some carry must be non-empty), and held on every
+     batch to K2 and K3 on the row blob of K1's packets (both forms timed
+     in turns) and to the data;
+     each kernel held against its plain version on the same card tensors
+     at 0 tolerance on the full batch 0 and the ragged last batch; on
+     batch 0
      the codec kernels' launch (threads and shared memory per block, one
      line: K1, K2 and K3 launch the same blocks), then K1, K2 and K3 timed
      on its first n packets for n in 1, 132, 1024, 4096, 8192 and one and
@@ -104,11 +113,14 @@ functions with the most self time and every ``np.copyto`` by caller
 profiler on (``stage_profile``, the lines of
 ``gpuar_tpu_torch/bench/stages.py``: on the drive loop's thread the
 files' open and close, the wait for the upload buffer, submit, fetch,
-splice and its waits on the reader and the writer; the reader's read and walk; the writer's write; the
+splice and its waits on the reader and the writer; the reader's read,
+header walk and carry, with the carry's bytes; the writer's write; the
 batch's device work by CUDA events, compress's blob download (D2H) as
 its own stage; the card's busy and idle seconds and the lead-in; the
-wall); and the splice of the super-batches into a fresh array, a reused
-buffer and in place (``splice_choice``).
+wall), and decompress's feed on one line (read, header walk and carry in
+seconds, over the archive's bytes, the carry in bytes and bytes a GiB);
+and the splice of the super-batches into a fresh array, a reused buffer
+and in place (``splice_choice``).
 
     python3 chip_smoke.py --parallel
 
@@ -127,7 +139,8 @@ size the rule of ``choose_waves`` picks (``runner.BATCH_WAVES`` holds the
 H100's); no kernels line.
 
 The second-to-last line is a JSON object of the kernels: for K1-K3 ms,
-plain_ms and bound_ms are batch 0's and launches phase 4's; for P1-P4 ms
+plain_ms and bound_ms are batch 0's (K2's and K3's on its dense blob)
+and launches phase 4's; for P1-P4 ms
 is the default's (P1 v0_3pass_256 and P2 1x(1,512) at 512 chains, P3
 level 5, P4 k_onehot at 1024 tables), plain_ms and bound_ms its full
 size's, launches phase 8's.  bound_ms is the larger of the bytes over
@@ -339,15 +352,36 @@ def to_batch(chunks):
     return data, sizes
 
 
-def blob_of(packets: np.ndarray, lengths: np.ndarray):
-    """The reader-built compacted form of fixed-stride packets."""
+def blob_of(packets: np.ndarray, lengths: np.ndarray, dense: bool = False):
+    """A reader-built form of fixed-stride packets: the row form (96-byte
+    rows, offsets = rows x 96) or, with ``dense``, the dense form the
+    drive loops read (the packets back to back at their byte offsets)."""
     from gpuar_tpu_torch.pipeline import _PacketReader
 
     body = b"".join(packets[i, : lengths[i]].tobytes()
                     for i in range(len(lengths)))
     reader = _PacketReader(io.BytesIO(body))
+    if dense:
+        return reader.read_batch_dense(len(lengths))
     blob, roff, comp_len, raw = reader.read_batch_blob(len(lengths), 96, 4096)
     return blob, roff.astype(np.int64) * 96, comp_len, raw
+
+
+class ArchiveReads:
+    """An archive's body (the bytes past its header) for
+    ``_PacketReader``, noting the body offset at which each read ended."""
+
+    def __init__(self, path: Path):
+        from gpuar_tpu_torch import container
+
+        self._f = io.BytesIO(path.read_bytes()[container.HEADER_LENGTH:])
+        self.ends: list[int] = []
+
+    def readinto(self, b) -> int:
+        k = self._f.readinto(b)
+        if k:
+            self.ends.append(self._f.tell())
+        return k
 
 
 def phase0() -> str:
@@ -549,8 +583,30 @@ def phase3(dev, errs, data, sizes, packets, lengths):
     except container.ContainerError:
         pass
     decode.check_debug_flags(flags[:, : len(lengths)], comp_len, len(lengths))
+    # The same packets as the dense blob: a packet's lookahead now reads
+    # its neighbour's bytes, and K3 must still flag exactly the corrupt.
+    blob, offs, comp_len, raw = blob_of(all_pk, all_len, dense=True)
+    args = (torch.from_numpy(blob).to(dev), torch.from_numpy(offs).to(dev),
+            torch.from_numpy(raw).to(dev))
+    out, flags = decode.decode_blob(*args, debug=True)
+    torch.cuda.synchronize()
+    rows = torch_codec.gather_regions(args[0], args[1], region)
+    p_out, p_flags = torch_codec.decode_packets(rows, args[2], P, debug=True)
+    e_dense = max(max_abs_err(out, p_out), max_abs_err(flags, p_flags))
+    errs["decode_debug"] = max(errs["decode_debug"], e_dense)
+    if e_dense:
+        raise AssertionError("K3 on the dense blob differs from its plain "
+                             "version")
+    flags = flags.cpu().numpy()
+    overrun = flags[1] > comp_len.astype(np.int64) * 8 + 16
+    flagged = np.nonzero((flags[0] != 0) | overrun)[0]
+    if not np.array_equal(flagged, want):
+        raise AssertionError(f"K3 on the dense blob flags "
+                             f"{flagged.tolist()}, corrupt are "
+                             f"{want.tolist()}")
     say("3 K3", f"flags equal the plain version; exactly the {len(noisy)} "
-        "noise-bodied packets raise ContainerError", t0)
+        "noise-bodied packets raise ContainerError, in the row blob and in "
+        "the dense blob", t0)
 
 
 def make_file(path: Path) -> int:
@@ -912,6 +968,18 @@ def stage_profile(card, gpu, src) -> None:
         run = stages.stage_run(gpu, verb, a, b)
         print(f"[{card}] stages {verb}: "
               f"{stages.line(run, stages.STAGES[verb])}", flush=True)
+    # The dense feed of that decompress: the file's read, the header walk
+    # (both over the archive's bytes once) and the carry.
+    body = (WORK / "stage.gip").stat().st_size
+    reader = run["threads"]["reader"]
+    secs = {st: reader.get(st, [0.0, 0])[0] for st in ("read", "walk",
+                                                       "carry")}
+    carried = run["bytes"].get("carry", 0)
+    print(f"[{card}] decompress feed: read {secs['read']:.6f} s and header "
+          f"walk {secs['walk']:.6f} s over {body} B of archive; carry "
+          f"{secs['carry']:.6f} s, {carried} B = {carried / body:.6f} of "
+          f"the archive ({carried / (body / 2 ** 30):.0f} B a GiB)",
+          flush=True)
     if md5(WORK / "stage.bin") != md5(src):
         raise AssertionError("the stage-timed run does not round-trip")
 
@@ -1190,11 +1258,15 @@ def ms_of(fn):
     return (time.perf_counter() - t) * 1e3, out
 
 
-def against_plain(dev, data: np.ndarray, sizes: np.ndarray):
+def against_plain(dev, data: np.ndarray, sizes: np.ndarray, dense=None):
     """K1, K2 and K3 on one batch's card tensors, each held against its
     plain version on the same tensors at 0 tolerance: K1 packets' first
-    lengths[i] bytes and lengths, K2 output, K3 output and flags (both
-    outputs also against the data), and the debug flags must be clean.
+    lengths[i] bytes and lengths; K2 output, K3 output and flags on
+    ``dense`` (the batch as ``read_batch_dense`` read it from the
+    archive: blob, byte offsets, comp_len, raw sizes; by default the
+    dense blob of K1's packets, as a shard of one), and on the row blob
+    of K1's packets against the same plain outputs; both outputs also
+    against the data, and the debug flags must be clean.
     -> ({kernel: max_abs_err}, {kernel: plain version ms}); raises on any
     difference."""
     from gpuar_tpu_torch.ops import decode, encode, torch_codec
@@ -1206,18 +1278,26 @@ def against_plain(dev, data: np.ndarray, sizes: np.ndarray):
         lambda: torch_codec.encode_packets(d, s, stride))
     e_enc = encode_err(pk, ln, p_pk, p_ln)
     del p_pk, p_ln
-    blob, offs, comp_len, rs = blob_of(pk.cpu().numpy(), ln.cpu().numpy())
+    if dense is None:
+        dense = blob_of(pk.cpu().numpy(), ln.cpu().numpy(), dense=True)
+    blob, offs, comp_len, rs = dense
     args = (torch.from_numpy(blob).to(dev), torch.from_numpy(offs).to(dev),
             torch.from_numpy(rs).to(dev))
+    rblob, roffs, _, _ = blob_of(pk.cpu().numpy(), ln.cpu().numpy())
+    rargs = (torch.from_numpy(rblob).to(dev),
+             torch.from_numpy(roffs).to(dev), args[2])
     rows = torch_codec.gather_regions(args[0], args[1], stride)
-    out = decode.decode_blob(*args)
+    out, rout = decode.decode_blob(*args), decode.decode_blob(*rargs)
     plain_dec, p_out = ms_of(
         lambda: torch_codec.decode_packets(rows, args[2], P))
-    e_dec = max(max_abs_err(out, p_out), max_abs_err(out, d))
+    e_dec = max(max_abs_err(out, p_out), max_abs_err(rout, p_out),
+                max_abs_err(out, d))
     out, flags = decode.decode_blob(*args, debug=True)
+    rout, rflags = decode.decode_blob(*rargs, debug=True)
     plain_dbg, (p_out, p_flags) = ms_of(
         lambda: torch_codec.decode_packets(rows, args[2], P, debug=True))
     e_dbg = max(max_abs_err(out, p_out), max_abs_err(flags, p_flags),
+                max_abs_err(rout, p_out), max_abs_err(rflags, p_flags),
                 max_abs_err(out, d))
     decode.check_debug_flags(flags.cpu().numpy(), comp_len, len(rs))
     if e_enc or e_dec or e_dbg:
@@ -1283,18 +1363,28 @@ def sweep(card, d, s, args) -> None:
 
 def phase5(card, dev, src, errs, n: int):
     """Each kernel on each of the main path's super-batches of n packets
-    (phase 4's GPUCompressor's, sized from the card), CUDA events.  On
-    batch 0 (full) and the last (ragged) each kernel is held against its
-    plain version on the same card tensors at 0 tolerance
-    (against_plain).  Then kernel against plain version at [32, 8192]."""
+    (phase 4's GPUCompressor's, sized from the card), CUDA events: K1 on
+    the batch's bytes, K2 and K3 on its dense blob, which
+    ``read_batch_dense`` reads from phase 4's archive as the drive loop
+    does (at its block, into two buffers in turn, each batch's carry moved
+    to the next), held on every batch to K2 and K3 on the row blob of
+    K1's packets and to the data.  On batch 0 (full) and the last (ragged)
+    each kernel is held against its plain version on the same card
+    tensors at 0 tolerance (against_plain).  Then kernel against plain
+    version at [32, 8192]."""
     from gpuar_tpu_torch import native
     from gpuar_tpu_torch.ops import decode, encode, torch_codec
+    from gpuar_tpu_torch.pipeline import _PacketReader
 
     t0 = time.perf_counter()
     raw = np.fromfile(src, np.uint8)
     stride = encode.out_geometry(P)[1] * 4
     batch0 = {}
     last = (-(-raw.size // P) - 1) // n
+    archive = ArchiveReads(WORK / "gpu.gip")
+    reader = _PacketReader(archive)
+    outs = [np.empty(reader.dense_capacity(n), np.uint8) for _ in range(2)]
+    packet_ends, body_at = set(), 0
     for b in range(last + 1):
         tb = time.perf_counter()
         data, sizes = main_path_batch(raw, b, n)
@@ -1303,12 +1393,50 @@ def phase5(card, dev, src, errs, n: int):
         d, s = torch.from_numpy(data).to(dev), torch.from_numpy(sizes).to(dev)
         ms_enc = timed(lambda: encode.encode_batch(d, s), reps=3)
         pk, ln = encode.encode_batch(d, s)
-        blob, offs, comp_len, rs = blob_of(pk.cpu().numpy(),
-                                           ln.cpu().numpy())
+        carried = reader.carried
+        dense = reader.read_batch_dense(n, outs[b % 2])
+        blob, offs, comp_len, rs = dense
+        if not (np.array_equal(rs, sizes)
+                and np.array_equal(comp_len, ln.cpu().numpy())):
+            raise AssertionError(f"dense batch {b} is not K1's packets")
+        packet_ends.update((body_at + offs + comp_len).tolist())
+        body_at += blob.size
         args = (torch.from_numpy(blob).to(dev),
                 torch.from_numpy(offs).to(dev), torch.from_numpy(rs).to(dev))
-        ms_dec = timed(lambda: decode.decode_blob(*args), reps=3)
-        ms_dbg = timed(lambda: decode.decode_blob(*args, debug=True), reps=3)
+        # The row blob of K1's packets: K2 and K3 give the same bytes and
+        # flags on it as on the dense blob, and the data.  Both forms are
+        # timed in turns (dense, rows, rows, dense), the means kept.
+        rblob, roffs, _, _ = blob_of(pk.cpu().numpy(), ln.cpu().numpy())
+        rargs = (torch.from_numpy(rblob).to(dev),
+                 torch.from_numpy(roffs).to(dev), args[2])
+        ms_form = {}
+        for form, a in (("dense", args), ("rows", rargs), ("rows", rargs),
+                        ("dense", args)):
+            for debug in (False, True):
+                ms_form.setdefault((form, debug), []).append(timed(
+                    lambda: decode.decode_blob(*a, debug=debug), reps=3))
+        ms_dec, ms_dbg = (float(np.mean(ms_form["dense", k]))
+                          for k in (False, True))
+        out, flags = decode.decode_blob(*args, debug=True)
+        rout, rflags = decode.decode_blob(*rargs, debug=True)
+        e_dense = max(max_abs_err(decode.decode_blob(*args),
+                                  decode.decode_blob(*rargs)),
+                      max_abs_err(out, rout), max_abs_err(flags, rflags),
+                      max_abs_err(out, d))
+        errs["decode"] = max(errs["decode"], e_dense)
+        errs["decode_debug"] = max(errs["decode_debug"], e_dense)
+        if e_dense:
+            raise AssertionError(f"batch {b}: K2/K3 on the dense blob differ "
+                                 f"from the row blob or the data")
+        del rargs, out, flags, rout, rflags
+        rows_ms = [float(np.mean(ms_form["rows", k])) for k in (False, True)]
+        print(f"[{card}] batch {b} dense blob: {len(rs)} packets, "
+              f"{blob.size} B (row blob {rblob.size} B), read by "
+              f"read_batch_dense, {reader.carried - carried} B carried in "
+              f"from batch {b - 1}; K2 and K3 equal them on the row blob "
+              f"and the data (max_abs_err 0); in turns K2 {ms_dec:.4f} ms "
+              f"dense, {rows_ms[0]:.4f} ms rows, K3 {ms_dbg:.4f} ms dense, "
+              f"{rows_ms[1]:.4f} ms rows", flush=True)
         mb = int(sizes.sum()) / 1e6
         print(f"[{card}] batch {b} {list(data.shape)} ({what}): K1 "
               f"{ms_enc:.4f} ms ({mb / ms_enc:.4f} GB/s), K2 {ms_dec:.4f} ms "
@@ -1357,7 +1485,7 @@ def phase5(card, dev, src, errs, n: int):
                       f"flat-table count at the float32 rate "
                       f"{flats[k][0]:.6f} ms)" for k in bounds), flush=True)
         del pk, ln, args
-        e, plain = against_plain(dev, data, sizes)
+        e, plain = against_plain(dev, data, sizes, dense)
         for key in e:
             errs[key] = max(errs[key], e[key])
         if b == 0:
@@ -1372,6 +1500,21 @@ def phase5(card, dev, src, errs, n: int):
               f"debug flags clean", flush=True)
         say(f"5 batch {b}", "kernels against plain versions done", tb)
         torch.cuda.empty_cache()
+
+    # The dense reads: the archive ends with the last batch; some read
+    # ended inside a packet (a packet straddled a block) and some batch's
+    # reads ran past its last packet (a packet straddled a batch boundary
+    # and came over as the carry).
+    if reader.read_batch_dense(n, outs[(last + 1) % 2]) is not None:
+        raise AssertionError("the archive holds more dense batches")
+    mid = [e for e in archive.ends if e not in packet_ends]
+    if not mid or not reader.carried:
+        raise AssertionError(f"no packet straddled a read ({len(mid)}) or a "
+                             f"batch ({reader.carried} B carried)")
+    print(f"[{card}] dense reads: {last + 1} batches of up to {n} packets, "
+          f"{len(archive.ends)} reads, {len(mid)} ending inside a packet, "
+          f"{reader.carried} B carried over {body_at} B of archive body",
+          flush=True)
 
     # Kernel against plain version at one small shape: 32 packets of text.
     small = raw[80 * MIB: 80 * MIB + 32 * P].reshape(32, P)

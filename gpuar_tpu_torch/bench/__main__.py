@@ -33,8 +33,10 @@ order:
      of the decompressed file equals the corpus's.  A failure exits
      non-zero and prints no metric;
   3. the kernel layer: K1 (``ops/encode.py encode_batch``) and K2
-     (``ops/decode.py decode_blob``) on each of those batches already on
-     the card, the launches the main path makes, timed by CUDA events (a
+     (``ops/decode.py decode_blob``, on the batch's packets as the dense
+     blob the drive loop reads: back to back, as they lie in the file) on
+     each of those batches already on the card, the launches the main
+     path makes, timed by CUDA events (a
      warm-up, then 5 timings; the least is the figure, every one is
      kept), and the corpus bytes over the sum of the least K1 and K2
      times (``kernel_gbps``);
@@ -188,7 +190,7 @@ LAYERS = {
                        "compress, mean of the two stage-timed runs",
     "decompress_read_s": "stages: the reader thread's file read s in a "
                          "decompress, mean",
-    "decompress_walk_s": "stages: the reader thread's walk s "
+    "decompress_walk_s": "stages: the reader thread's header walk s "
                          "(native.walk_packets) in a decompress, mean",
     "compress_write_s": "stages: the writer thread's write s in a "
                         "compress, mean",
@@ -376,14 +378,14 @@ def kernel_layer(data: bytes, device: torch.device, host, packets: int,
     ``device``: every packet held to the port's golden codec
     (``host.encode_batch``), ``golden_sample`` a GOLDEN_BYTES of corpus
     (``golden_quota`` of ``golden_total``) to the executable
-    specification, K2's output to the batch; on a CUDA device also timed
+    specification, K2's output (on the dense blob of K1's packets, the
+    drive loop's form) to the batch; on a CUDA device also timed
     -> [{"packets", "bytes", "comp_bytes" (the packets' total length),
     "golden_sampled", and on CUDA "k1_ms", "k2_ms" (the least) and
     "k1_reps", "k2_reps"}]."""
+    from gpuar_tpu_torch import native
     from gpuar_tpu_torch.ops import decode, encode
-    from gpuar_tpu_torch.parallel.codec import COMPACT_ROW_WORDS, compact_rows
 
-    row_bytes = COMPACT_ROW_WORDS * 4
     rows_out, picked = [], []
     cut = batches(data, packets)
     quota = golden_quota([rows.shape[0] for rows, _, _ in cut],
@@ -398,8 +400,9 @@ def kernel_layer(data: bytes, device: torch.device, host, packets: int,
         idx = sample(rows.shape[0], quota[b], seed=b)
         picked += [(b, int(i), got[i, : lengths[i]].tobytes(),
                     chunk[i * P: (i + 1) * P].tobytes()) for i in idx]
-        blob, roff, _ = compact_rows(pk, ln, row_bytes)
-        blob, offs = blob.reshape(-1), roff * row_bytes
+        blob = torch.from_numpy(native.splice(got, lengths)).to(device)
+        offs = torch.from_numpy(np.concatenate(
+            [[0], np.cumsum(lengths[:-1], dtype=np.int64)])).to(device)
         if not torch.equal(decode.decode_blob(blob, offs, s), d):
             raise Failure(f"super-batch {b}: K2 does not return the batch")
         row = {"packets": int(rows.shape[0]), "bytes": int(chunk.size),

@@ -10,8 +10,8 @@ program (``mock.patch`` for the run, undone after it; no profiler):
     opening and closing of the files, the wait for the slot's upload
     buffer, the submit, the fetch, the splice, and its waits on the
     reader and writer lanes), the reader's (``gpuar-reader``: the file's
-    read, and decompress's walk) and the writer's (``gpuar-writer``: the
-    write);
+    read, and decompress's header walk and carry, with the carry's bytes)
+    and the writer's (``gpuar-writer``: the write);
   * device stages, by CUDA events recorded on the codec's streams before
     and after the call that enqueues the work: compress's upload, K1,
     compaction and length download on the batch stream, and its blob
@@ -39,8 +39,8 @@ import torch
 COMPRESS_STAGES = ["open", "read", "buffer wait", "submit",
                    "H2D + K1 + compaction", "D2H", "fetch", "splice",
                    "write", "close"]
-DECOMPRESS_STAGES = ["open", "read", "walk", "buffer wait", "submit",
-                     "H2D + K2 + D2H", "fetch", "write", "close"]
+DECOMPRESS_STAGES = ["open", "read", "walk", "carry", "buffer wait",
+                     "submit", "H2D + K2 + D2H", "fetch", "write", "close"]
 STAGES = {"compress": COMPRESS_STAGES, "decompress": DECOMPRESS_STAGES}
 
 # The drive loops' threads (``pipeline._Lane`` names its own) -> label.
@@ -51,6 +51,9 @@ THREADS = (("MainThread", "main"), ("gpuar-reader", "reader"),
 LOOP_STAGES = ("wait on reader", "wait on writer", "submit", "fetch",
                "splice", "buffer wait", "open", "close")
 GAPS = 5   # idle gaps a breakdown lists, the longest first
+# Host stages whose call returns the bytes it moved, summed beside their
+# seconds: the dense reader's carry (``_PacketReader._carry_in``).
+BYTE_STAGES = ("carry",)
 
 
 def _on_fetch_stream(codec) -> bool:
@@ -85,6 +88,8 @@ def hooks(verb: str, compressor: type) -> list[tuple]:
              "_stream", None),
             *common,
             ("host", native, "walk_packets", "walk", None, None),
+            ("host", pipeline._PacketReader, "_carry_in", "carry", None,
+             None),
             ("host", compressor, "decode_submit_blob", "submit", None, None),
             ("host", MeshCodec, "decode_body_wait", "fetch", None, None)]
 
@@ -97,6 +102,7 @@ class StageClock:
         self.spans: list[tuple[str, str, float, float]] = []
         self.events: dict[str, list] = {}   # stage -> [(device, start, end)]
         self.anchors: dict[int, tuple] = {}  # device -> (event, host s)
+        self.moved: dict[str, int] = {}   # BYTE_STAGES' stage -> bytes
         self.t0 = self.t1 = 0.0
         self._lock = threading.Lock()
 
@@ -116,7 +122,11 @@ class StageClock:
 
         def timed_call(*args, **kw):
             with self.span(stage):
-                return fn(*args, **kw)
+                out = fn(*args, **kw)
+            if stage in BYTE_STAGES:
+                with self._lock:
+                    self.moved[stage] = self.moved.get(stage, 0) + out
+            return out
         return mock.patch.object(owner, attr, timed_call)
 
     def lane_waits(self, owner):
@@ -247,7 +257,7 @@ class StageClock:
     def summary(self) -> dict:
         """The run as plain numbers (``summarize``)."""
         return summarize(self.t0, self.t1, self.spans,
-                         self.device_intervals())
+                         self.device_intervals(), self.moved)
 
 
 def stage_run(gpu, verb: str, src, dst) -> dict:
@@ -352,10 +362,11 @@ def attribute(t0: float, t1: float, device, threads: dict,
             "idle_gaps": rows, "idle_by_loop_stage": by_loop}
 
 
-def summarize(t0: float, t1: float, spans, device) -> dict:
+def summarize(t0: float, t1: float, spans, device, moved=None) -> dict:
     """One run -> ``attribute``'s numbers plus "threads" ({label: {stage:
-    [s, count]}}) and "device" ({stage: [s, count]}, each interval's
-    length summed; they may overlap)."""
+    [s, count]}}), "device" ({stage: [s, count]}, each interval's length
+    summed; they may overlap) and "bytes" (``moved``: {stage of
+    BYTE_STAGES: bytes})."""
     threads: dict[str, list] = {label: [] for _, label in THREADS}
     names = dict(THREADS)
     for thread, stage, a, b in spans:
@@ -365,6 +376,7 @@ def summarize(t0: float, t1: float, spans, device) -> dict:
     out["threads"] = {label: _sums((st, b - a) for st, a, b in mine)
                       for label, mine in threads.items()}
     out["device"] = _sums((st, b - a) for st, a, b in device)
+    out["bytes"] = dict(moved or {})
     return out
 
 
@@ -379,9 +391,10 @@ def _sums(pairs) -> dict[str, list]:
 
 def line(run: dict, order: list[str]) -> str:
     """One run's ``summarize`` dict as a line: the wall; each thread's
-    stages in ``order``, then its waits, its busy sum (and, on the main
-    thread, the rest of the wall); the device stages (CUDA events); the
-    card's busy union, idle seconds and the lead-in."""
+    stages in ``order`` (a BYTE_STAGES stage with its bytes), then its
+    waits, its busy sum (and, on the main thread, the rest of the wall);
+    the device stages (CUDA events); the card's busy union, idle seconds
+    and the lead-in."""
     wall = run["wall_s"]
     parts = [f"wall {wall:.6f} s"]
     for _, label in THREADS:
@@ -390,8 +403,10 @@ def line(run: dict, order: list[str]) -> str:
             + sorted(st for st in mine if st.startswith("wait on"))
         busy = sum(mine[st][0] for st in stages)
         rest = f", rest {wall - busy:.6f} s" if label == "main" else ""
+        moved = run.get("bytes", {})
         parts.append(f"{label}: " + ", ".join(
-            f"{st} {mine[st][0]:.6f} s x{mine[st][1]}" for st in stages)
+            f"{st} {mine[st][0]:.6f} s x{mine[st][1]}"
+            + (f" {moved[st]} B" if st in moved else "") for st in stages)
             + f" (sum {busy:.6f} s{rest})")
     for stage in order:
         if stage in run["device"]:

@@ -3,7 +3,8 @@
 
 It is the port's ``--host`` codec (``pipeline.HostCompressor``), the deep
 check of ``verify_archive``, the host splice of the GPU path
-(``splice_at``, ``expand_at``), the decode reader's packet walk
+(``splice_at``), the stride batch of the multi-host loader
+(``expand_at``), the decode reader's packet and header walks
 (``walk_packets``) and the stream codec of whole ``.gip``
 bodies (``encode_stream``, ``decode_stream``).  The library is compiled
 at first use into ``gpuar_tpu_torch/_build/`` (git-ignored), keyed by a
@@ -13,7 +14,7 @@ processes that build at once (test workers in a fresh checkout) never see
 one another's half-written library.
 
 Every entry point of the JAX package's loader is bound, under its name;
-``walk_packets`` and ``expand_at``'s ``out=`` are the port's own.
+``walk_packets`` is the port's own.
 """
 
 from __future__ import annotations
@@ -99,7 +100,7 @@ def load() -> ctypes.CDLL:
             vp = ctypes.c_void_p
             lib.tg_walk_packets.argtypes = [vp, long_, long_, ctypes.c_int,
                                             ctypes.c_int, vp, long_, long_,
-                                            long_, vp, vp, vp, vp]
+                                            long_, vp, vp, vp, vp, vp]
             lib.tg_walk_packets.restype = ctypes.c_int
             _LIB = lib
         return _LIB
@@ -257,28 +258,15 @@ def splice_at(blob: np.ndarray, offsets: np.ndarray, lengths: np.ndarray,
 
 
 def expand_at(body: np.ndarray, offsets: np.ndarray, lengths: np.ndarray,
-              blob_cap: int, out: np.ndarray | None = None) -> np.ndarray:
-    """Scatter back-to-back packets to aligned blob offsets (the decode
-    upload blob): blob[offsets[i]:+lengths[i]] = the next body bytes, the
-    rest of the blob zeros; the offsets ascend without overlap.
-
-    ``out``: a flat C-contiguous uint8 array of at least blob_cap bytes to
-    build the blob in (a reused upload buffer), in place of a new one;
-    the result is a view of its head.  Every byte no packet covers is
-    zeroed, so the blob is the same whatever ``out`` held."""
+              blob_cap: int) -> np.ndarray:
+    """Scatter back-to-back packets to aligned blob offsets:
+    blob[offsets[i]:+lengths[i]] = the next body bytes, the rest of the
+    blob zeros; the offsets ascend without overlap."""
     lib = load()
     body = np.ascontiguousarray(body, dtype=np.uint8).reshape(-1)
     offsets = np.ascontiguousarray(offsets, dtype=np.int64)
     lengths = np.ascontiguousarray(lengths, dtype=np.int32)
-    if out is None:
-        blob = np.empty(blob_cap, dtype=np.uint8)
-    elif (out.dtype != np.uint8 or out.ndim != 1
-          or not out.flags.c_contiguous or not out.flags.writeable
-          or out.size < blob_cap):
-        raise ValueError(f"expand_at: out must be a writable flat uint8 "
-                         f"array of at least {blob_cap} B")
-    else:
-        blob = out[:blob_cap]
+    blob = np.empty(blob_cap, dtype=np.uint8)
     r = lib.tg_expand_at(_u8p(body), body.size, _i64p(offsets),
                          _i32p(lengths), lengths.shape[0], _u8p(blob),
                          blob.size)
@@ -293,25 +281,33 @@ WALK_FULL, WALK_PARTIAL, WALK_BAD_HEADER, WALK_OVERFLOW = range(4)
 
 
 def walk_packets(buf: np.ndarray, start: int, end: int, max_packets: int,
-                 max_raw: int, dst: np.ndarray, row_bytes: int, rows0: int,
-                 comp_len: np.ndarray, raw_sizes: np.ndarray, at: int,
-                 roff: np.ndarray | None = None):
-    """Walk the framed packets of buf[start:end] into dst, a flat uint8
-    blob of row_bytes rows (no Python per packet).
+                 max_raw: int, dst: np.ndarray | None, row_bytes: int,
+                 rows0: int, comp_len: np.ndarray, raw_sizes: np.ndarray,
+                 at: int, roff: np.ndarray | None = None,
+                 boff: np.ndarray | None = None):
+    """Walk the framed packets of buf[start:end] (no Python per packet).
 
     Each complete packet with a valid header (``container.
     validate_packet_header``'s rule, max_raw the backend's packet size)
-    is copied to row ``rows0`` onward, the rest of its last row is zeroed,
-    and its row offset (into ``roff``, if given), length and raw size are
-    written at index ``at`` onward of the int32 arrays.  Stops after
+    has its length and raw size written at index ``at`` onward of the
+    int32 arrays comp_len and raw_sizes.  With ``dst``, a flat uint8 blob
+    of row_bytes rows, it is also copied to row ``rows0`` onward, the rest
+    of its last row is zeroed, and its row offset goes into ``roff`` (if
+    given).  With ``dst=None`` it is the header walk: no byte is copied,
+    and its byte offset in buf goes into the int64 array ``boff`` at
+    ``at`` onward (row_bytes and rows0 are not used).  Stops after
     max_packets packets (WALK_FULL), at the first packet not complete in
     buf (WALK_PARTIAL) or at the first bad header (WALK_BAD_HEADER).
-    Returns (stop, packets, bytes consumed, rows used).
+    Returns (stop, packets, bytes consumed, rows used; 0 in the header
+    walk).
     """
+    if dst is None and boff is None:
+        raise ValueError("walk_packets: the header walk needs boff")
     for name, arr, dtype in (("buf", buf, np.uint8), ("dst", dst, np.uint8),
                              ("comp_len", comp_len, np.int32),
                              ("raw_sizes", raw_sizes, np.int32),
-                             ("roff", roff, np.int32)):
+                             ("roff", roff, np.int32),
+                             ("boff", boff, np.int64)):
         if arr is not None and (arr.dtype != dtype
                                 or not arr.flags.c_contiguous):
             raise ValueError(f"walk_packets: {name} must be C-contiguous "
@@ -320,14 +316,19 @@ def walk_packets(buf: np.ndarray, start: int, end: int, max_packets: int,
         raise ValueError("walk_packets: start/end out of range")
     if max_packets < 0 or at < 0 or any(
             a is not None and at + max_packets > a.size
-            for a in (comp_len, raw_sizes, roff)):
+            for a in (comp_len, raw_sizes, roff, boff)):
         raise ValueError("walk_packets: index arrays too short")
     lib = load()
     res = np.zeros(3, np.int64)
+    header_walk = dst is None
     stop = lib.tg_walk_packets(
         buf.ctypes.data + start, end - start, max_packets,
-        COMPRESSED_PACKET_SIZE, max_raw, dst.ctypes.data, dst.nbytes,
-        row_bytes, rows0, None if roff is None else roff.ctypes.data + 4 * at,
+        COMPRESSED_PACKET_SIZE, max_raw,
+        None if header_walk else dst.ctypes.data,
+        0 if header_walk else dst.nbytes, row_bytes,
+        start if header_walk else rows0,
+        None if roff is None or header_walk else roff.ctypes.data + 4 * at,
+        boff.ctypes.data + 8 * at if header_walk else None,
         comp_len.ctypes.data + 4 * at, raw_sizes.ctypes.data + 4 * at,
         res.ctypes.data)
     if stop == WALK_OVERFLOW:

@@ -635,11 +635,11 @@ long tg_splice_at(const uint8_t* blob, long blob_len, const long* offsets,
 }
 
 // Scatter packets from a back-to-back body into aligned blob offsets
-// (the decode-side mirror: one pass builds the device upload buffer).
-// The offsets ascend without overlap, and every byte of blob[0, blob_cap)
-// that no packet covers (the gap after each packet and the tail) is
-// zeroed, so the blob is the same whatever the buffer held (a reused
-// upload buffer): each byte is written once.
+// (the multi-host stride loader's batch, in one pass).  The offsets
+// ascend without overlap, and every byte of blob[0, blob_cap) that no
+// packet covers (the gap after each packet and the tail) is zeroed, so
+// the blob is the same whatever the buffer held: each byte is written
+// once.
 long tg_expand_at(const uint8_t* body, long body_len, const long* offsets,
                   const int* lengths, long n, uint8_t* blob,
                   long blob_cap) {
@@ -658,20 +658,22 @@ long tg_expand_at(const uint8_t* body, long body_len, const long* offsets,
   return r;
 }
 
-// Walk the framed packets at the head of buf[0, len) into a row-aligned
-// blob (the decode reader's inner loop).  Each complete packet whose
-// header passes the reader's check (kHeader <= total <= max_total, raw <=
-// max_raw) is copied to row `rows` of dst (row_bytes a row, rows counted
-// from rows0), the rest of its last row is zeroed, and its row offset,
-// length and raw size go to roff, comp_len and raw_sizes (roff may be
-// null).  The walk stops after max_packets packets (returns 0), at the
-// first packet not complete in buf (1), at the first header that fails
-// the check (2), or where dst would overflow (3).  res = {packets,
-// bytes consumed, rows used}.
+// Walk the framed packets at the head of buf[0, len) (the decode
+// reader's inner loop).  Each complete packet whose header passes the
+// reader's check (kHeader <= total <= max_total, raw <= max_raw) has its
+// length and raw size written to comp_len and raw_sizes.  With a dst it
+// is also copied to row `rows` of dst (row_bytes a row, rows counted from
+// rows0), the rest of its last row is zeroed, and its row offset goes to
+// roff (which may be null).  With a null dst it is the header walk: no
+// byte is copied, and the packet's byte offset, counted from buf[0] plus
+// rows0, goes to boff.  The walk stops after max_packets packets (returns
+// 0), at the first packet not complete in buf (1), at the first header
+// that fails the check (2), or where dst would overflow (3).  res =
+// {packets, bytes consumed, rows used (0 in the header walk)}.
 int tg_walk_packets(const uint8_t* buf, long len, long max_packets,
                     int max_total, int max_raw, uint8_t* dst, long dst_cap,
-                    long row_bytes, long rows0, int* roff, int* comp_len,
-                    int* raw_sizes, long* res) {
+                    long row_bytes, long rows0, int* roff, long* boff,
+                    int* comp_len, int* raw_sizes, long* res) {
   long n = 0, r = 0, rows = rows0;
   int stop = 0;
   while (n < max_packets) {
@@ -683,21 +685,25 @@ int tg_walk_packets(const uint8_t* buf, long len, long max_packets,
       break;
     }
     if (len - r < total) { stop = 1; break; }
-    const long span = (total + row_bytes - 1) / row_bytes * row_bytes;
-    uint8_t* to = dst + rows * row_bytes;
-    if (rows * row_bytes + span > dst_cap) { stop = 3; break; }
-    std::memcpy(to, buf + r, static_cast<size_t>(total));
-    std::memset(to + total, 0, static_cast<size_t>(span - total));
-    if (roff) roff[n] = static_cast<int>(rows);
+    if (dst) {
+      const long span = (total + row_bytes - 1) / row_bytes * row_bytes;
+      uint8_t* to = dst + rows * row_bytes;
+      if (rows * row_bytes + span > dst_cap) { stop = 3; break; }
+      std::memcpy(to, buf + r, static_cast<size_t>(total));
+      std::memset(to + total, 0, static_cast<size_t>(span - total));
+      if (roff) roff[n] = static_cast<int>(rows);
+      rows += span / row_bytes;
+    } else {
+      boff[n] = rows0 + r;
+    }
     comp_len[n] = total;
     raw_sizes[n] = raw;
-    rows += span / row_bytes;
     r += total;
     ++n;
   }
   res[0] = n;
   res[1] = r;
-  res[2] = rows - rows0;
+  res[2] = dst ? rows - rows0 : 0;
   return stop;
 }
 

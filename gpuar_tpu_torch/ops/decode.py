@@ -18,8 +18,9 @@ Two input forms, one kernel:
 * ``decode_batch`` takes the stride form, packets [B, S] with packet i in
   row i (what ``_PacketReader.read_batch`` returns);
 * ``decode_blob`` takes the compacted form, one byte blob with packet i at
-  ``byte_offsets[i]`` (what ``_PacketReader.read_batch_blob`` returns,
-  with offsets = row offsets * row bytes).
+  ``byte_offsets[i]``: the dense blob of ``_PacketReader.read_batch_dense``
+  (the packets as they lie in the file, the drive loops' form), or the
+  row form of ``read_batch_blob`` with offsets = row offsets * row bytes.
 
 Either way a packet's readable window is its first ``out_words*4`` bytes
 (the stride the TPU kernel reads), clipped to the input; bytes past it

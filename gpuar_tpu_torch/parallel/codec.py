@@ -12,8 +12,9 @@ The encode result is compacted on the device before it is fetched: each
 packet's bytes are gathered into whole 96-byte rows of a dense blob
 (``compact_rows``), so the download carries compressed bytes, and the host
 strips the row padding with ``native.splice_at`` into the ``.gip`` body.
-Decode reads the reader-built blob in place (K2 takes per-packet byte
-offsets), so there is no expand gather.
+Decode reads the reader's dense blob in place, the packets as they lie in
+the file at their byte offsets (K2 takes per-packet byte offsets), so
+there is no expand gather.
 
 What the JAX MeshCodec does for the TPU's sake and this class does not:
 the entropy and density sorts, hull routing, ``_expand_rows``, lane
@@ -38,7 +39,6 @@ from gpuar_tpu_torch.ops import decode as dec_ops
 from gpuar_tpu_torch.ops import encode as enc_ops
 
 COMPACT_ROW_WORDS = 24   # 96-byte rows (divides out_words 2184 at 8192)
-BUCKET_ROWS = 4096       # blob row multiple the packet reader pads to
 
 
 def compact_rows(packets: torch.Tensor, lengths: torch.Tensor,
@@ -240,21 +240,21 @@ class DeviceCodec:
         return slot, self._record(slot), h_out, h_flags, comp_len
 
     def decode_blob_async(self, blob: np.ndarray | torch.Tensor,
-                          roff: np.ndarray, comp_len: np.ndarray,
+                          offsets: np.ndarray, comp_len: np.ndarray,
                           raw_sizes: np.ndarray,
                           out: torch.Tensor | None = None):
         """Launch K2 (K3 under debug) on a reader-built blob: packet i's
-        framed bytes start at row roff[i] (``decode_blob_geometry`` rows).
-        A host tensor ``blob`` (pinned for a CUDA device) is uploaded as
-        it is, an array through the slot's pinned buffer.  ``out``: a
-        uint8 [n, packet_size] host tensor the result is downloaded into
-        (default the slot's pinned buffer)."""
+        framed bytes start at byte offsets[i] (int64; the dense blob of
+        ``_PacketReader.read_batch_dense``, or any blob of packets at
+        byte offsets).  A host tensor ``blob`` (pinned for a CUDA device)
+        is uploaded as it is, an array through the slot's pinned buffer.
+        ``out``: a uint8 [n, packet_size] host tensor the result is
+        downloaded into (default the slot's pinned buffer)."""
         slot = self._slot()
         with self._on_stream():
             res = dec_ops.decode_blob(
                 self._upload(slot, "blob", blob),
-                self._upload(slot, "offsets",
-                             np.asarray(roff, np.int64) * self.row_bytes),
+                self._upload(slot, "offsets", np.asarray(offsets, np.int64)),
                 self._upload(slot, "raw", np.asarray(raw_sizes, np.int32)),
                 packet_size=self.packet_size, debug=self.debug)
             return self._decode_tail(slot, res, np.asarray(comp_len), out)

@@ -10,9 +10,9 @@ protocol and the same archive:
 * decompress: rank 0 walks the packet index of the archive and broadcasts
   it in geometrically growing groups of super-batch segments as it walks;
   segment s is decoded by rank ``s % world`` and written at its walked raw
-  offset.  A backend with the compacted-blob interface (GPUCompressor)
-  gets each segment as a row-aligned blob, any other (HostCompressor, the
-  sleep control) as a fixed-stride batch.
+  offset.  A backend with the blob interface (GPUCompressor) gets each
+  segment as a dense blob, its packets as they lie in the file, any other
+  (HostCompressor, the sleep control) as a fixed-stride batch.
 
 Every process needs the same shared filesystem.  The pure planning
 helpers, the index walks, the prefetch thread and the segment loaders are
@@ -27,10 +27,11 @@ their own: two threads never share one group's collective sequence.
 
 Both loops run on three threads, on the local drive loops' terms
 (``pipeline.Compressor``, ``pipeline._Lane``): a reader thread reads the
-next batch into the backend's upload buffer (compress) or builds the
-next owned segment's blob in the buffer ``decode_blob_buffer`` hands out
-(decompress), and a writer thread appends each body to the rank's spool
-or writes each decoded segment at its raw offset.
+next batch into the backend's upload buffer (compress) or reads the
+next owned segment's body straight into the buffer
+``decode_blob_buffer`` hands out (decompress), and a writer thread
+appends each body to the rank's spool or writes each decoded segment at
+its raw offset.
 
 A world of one (nothing configured) runs the local pipeline's bytes with
 no collective at all.
@@ -58,7 +59,6 @@ from gpuar_tpu_torch.config import (
 from gpuar_tpu_torch.pipeline import (
     _Lane,
     _splice,
-    blob_capacity,
     read_into,
 )
 from gpuar_tpu_torch.utils.stats import (
@@ -278,13 +278,13 @@ class DistributedCompressor:
 
     The local codec work goes to a per-process ``pipeline.Compressor``
     backend, by default GPUCompressor on this process's local GPUs.
-    Decode hands each owned segment to the backend's compacted-blob
-    interface (``decode_blob_geometry``, ``decode_blob_buffer``,
-    ``decode_submit_blob``) where it has one, with the blob built in the
-    buffer ``decode_blob_buffer`` hands out, and to ``decode_submit`` as
-    a fixed-stride batch where it has not (HostCompressor, the sleep
-    control).  Every rank plans with one super-batch: rank 0's, where a
-    rank's backend sized its own from its card (``_agree_batch``).
+    Decode hands each owned segment to the backend's blob interface
+    (``decode_blob_buffer``, ``decode_submit_blob``) where it has one, as
+    the dense blob read into the buffer ``decode_blob_buffer`` hands out,
+    and to ``decode_submit`` as a fixed-stride batch where it has not
+    (HostCompressor, the sleep control).  Every rank plans with one
+    super-batch: rank 0's, where a rank's backend sized its own from its
+    card (``_agree_batch``).
 
     Both loops run on three threads, as the local drive loops do
     (``pipeline.Compressor``): for batch or owned segment k this thread
@@ -440,9 +440,9 @@ class DistributedCompressor:
         return info
 
     def _segment_array(self, nbytes: int) -> np.ndarray:
-        """The reused array the reader reads a segment's body into, at
-        least nbytes: grown, on this thread between the reader's jobs, to
-        the most a segment of super-batch packets can hold."""
+        """The reused array the stride loader reads a segment's body
+        into, at least nbytes: grown, on this thread between the reader's
+        jobs, to the most a segment of super-batch packets can hold."""
         if self._segment_bytes.size < nbytes:
             self._segment_bytes = np.empty(max(
                 nbytes, self.backend.super_batch_packets
@@ -479,12 +479,9 @@ class DistributedCompressor:
             body = _BodyView(fin, container.HEADER_LENGTH)
             body_size = header.compressed_size - container.HEADER_LENGTH
             chunkp = self.backend.super_batch_packets
-            blob_geom = getattr(self.backend, "decode_blob_geometry", None)
-            if blob_geom is not None:
-                blob_geom = blob_geom()
-                submit = self.backend.decode_submit_blob
-            else:
-                submit = self.backend.decode_submit
+            blob_buffer = getattr(self.backend, "decode_blob_buffer", None)
+            submit = self.backend.decode_submit if blob_buffer is None \
+                else self.backend.decode_submit_blob
             # Progress is global: segment raw offsets come from the walked
             # index, so the end offset of the last segment this rank
             # finished covers every earlier segment, whoever owned it.
@@ -524,20 +521,19 @@ class DistributedCompressor:
                                 return seg
 
                     def hand(seg):
-                        """Start the reader on an owned segment: its blob
-                        built in the buffer decode_blob_buffer hands out
+                        """Start the reader on an owned segment: its body
+                        read into the buffer decode_blob_buffer hands out
                         (GPUCompressor: the pinned one the upload reads),
                         or a fixed-stride batch."""
-                        data = self._segment_array(
-                            int(seg[0, -1] - seg[0, 0]))
-                        if blob_geom is None:
-                            reader.start(_load_segment, body, seg, data)
+                        if blob_buffer is None:
+                            reader.start(_load_segment, body, seg,
+                                         self._segment_array(
+                                             int(seg[0, -1] - seg[0, 0])))
                             return
                         with io:
-                            out = self.backend.decode_blob_buffer(
-                                blob_capacity(chunkp, *blob_geom))
-                        reader.start(_load_segment_blob, body, seg,
-                                     *blob_geom, out, data)
+                            out = blob_buffer(
+                                chunkp * COMPRESSED_PACKET_SIZE)
+                        reader.start(_load_segment_blob, body, seg, out)
 
                     seg = next_owned()
                     if seg is not None:
@@ -710,27 +706,19 @@ def _load_segment(body: "_BodyView", seg: np.ndarray,
 
 
 def _load_segment_blob(body: "_BodyView", seg: np.ndarray,
-                       row_bytes: int, bucket_rows: int,
-                       out: np.ndarray | None = None,
-                       data: np.ndarray | None = None):
-    """Load one walked index segment straight into the row-aligned device
-    upload blob (pipeline._PacketReader.read_batch_blob's twin): the
-    segment body read IS the dense packet concatenation, so a single
-    native.expand_at scatter builds the blob.  ``out``: a flat uint8
-    array to build it in (the backend's ``decode_blob_buffer``, reused
-    batch after batch), by default a new one; every byte K2 may read, the
-    tail of each packet's last row and the bucket's padding rows, is
-    written, so stale bytes in ``out`` never show.  ``data`` as
-    ``_read_segment``'s.  Returns (blob, row_offsets, comp_len,
-    raw_sizes) for backend.decode_submit_blob, the blob a view of
-    ``out``'s head when given."""
-    data, comp_len, raw_sizes = _read_segment(body, seg, data)
-    n = comp_len.shape[0]
-    rcnt = (comp_len + row_bytes - 1) // row_bytes
-    roff = np.zeros(n, np.int32)
-    np.cumsum(rcnt[:-1], out=roff[1:])
-    rows = int(roff[-1] + rcnt[-1]) if n else 0
-    kb = -(-max(rows, 1) // bucket_rows) * bucket_rows
-    blob = native.expand_at(data, roff.astype(np.int64) * row_bytes,
-                            comp_len, kb * row_bytes, out=out)
-    return blob, roff, comp_len, raw_sizes
+                       out: np.ndarray | None = None):
+    """Load one walked index segment as a dense upload blob: the segment's
+    body IS the packets' concatenation, so it is read with ``readinto``
+    straight into ``out`` (the backend's ``decode_blob_buffer``, reused
+    batch after batch; by default a new array) and each packet's byte
+    offset comes from the walked index.  No byte is copied after the
+    read.  Returns (blob, a view of ``out``'s head, byte_offsets int64
+    [k], comp_len int32 [k], raw_sizes int32 [k]) for
+    backend.decode_submit_blob; a body cut off mid-packet raises as
+    ``_read_segment``."""
+    size = int(seg[0, -1] - seg[0, 0])
+    if out is not None and out.size < size:
+        raise ValueError(f"out holds {out.size} B, the segment needs {size}")
+    blob, comp_len, raw_sizes = _read_segment(body, seg, out)
+    return (blob, (seg[0, :-1] - seg[0, 0]).astype(np.int64, copy=False),
+            comp_len, raw_sizes)

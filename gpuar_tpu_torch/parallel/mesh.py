@@ -17,11 +17,12 @@ results in packet order.
   into its byte range of one pinned batch buffer, and one
   ``native.splice_at`` in place over that buffer gives the batch's
   ``.gip`` body.
-- Decode: shard k of the reader-built blob is its rows
-  ``roff[a_k] .. roff[b_k]``, rebased to zero.  The file pipeline has the
-  reader build the blob in the batch slot's host buffer (``blob_buffer``,
-  pinned for a CUDA device), so each shard uploads its slice of it with
-  no host copy; a blob from elsewhere is copied into that buffer first.
+- Decode: shard k of the reader-built blob is its bytes ``off[a_k] ..
+  off[b_k]`` (the last shard's to the blob's end), its offsets rebased
+  to zero.  The file pipeline has the reader read the dense blob into the
+  batch slot's host buffer (``blob_buffer``, pinned for a CUDA device),
+  so each shard uploads its slice of it with no host copy; a blob from
+  elsewhere is copied into that buffer first.
   Every shard's output is downloaded straight into its rows of one pinned
   ``[n, packet_size]`` batch buffer, so the host never concatenates
   shards; debug flags are joined in packet order and checked once.
@@ -84,7 +85,6 @@ class MeshCodec:
         self.packet_size = first.packet_size
         self.debug = debug
         self.stride = first.stride
-        self.row_bytes = first.row_bytes
         pinned = any(c.device.type == "cuda" for c in self.codecs)
         self._slots = [_Slot(pinned), _Slot(pinned)]
         self._next = 0
@@ -226,24 +226,23 @@ class MeshCodec:
         it with no copy when given its head as ``blob``."""
         return self._hand("blob", nbytes)
 
-    def decode_blob_async(self, blob: np.ndarray, roff: np.ndarray,
+    def decode_blob_async(self, blob: np.ndarray, offsets: np.ndarray,
                           comp_len: np.ndarray, raw_sizes: np.ndarray):
         """Launch K2 (K3 under debug) on each shard of a reader-built blob
-        (``decode_blob_geometry`` rows).  Every shard uploads its slice of
-        the slot's blob buffer: a blob built in ``blob_buffer`` is already
-        there, any other array is copied in first."""
+        of packets at byte offsets (int64).  Every shard uploads its slice
+        of the slot's blob buffer: a blob built in ``blob_buffer`` is
+        already there, any other array is copied in first."""
         n = raw_sizes.shape[0]
         i = self._next
         slot = self._slot()
         out = self._out(slot, n)
         staged = self._staged("blob", i, blob)
-        rb = self.row_bytes
         parts = []
         for codec, (a, b) in self._shards(n):
-            r0 = int(roff[a])
-            stop = int(roff[b]) * rb if b < n else None
+            o0 = int(offsets[a])
+            stop = int(offsets[b]) if b < n else None
             parts.append((codec, codec.decode_blob_async(
-                staged[r0 * rb: stop], roff[a:b] - r0, comp_len[a:b],
+                staged[o0: stop], offsets[a:b] - o0, comp_len[a:b],
                 raw_sizes[a:b], out=out[a:b])))
         self._uploads[i] = [h[1] for _, h in parts]
         return out, parts

@@ -23,7 +23,6 @@ import numpy as np
 import torch
 
 from gpuar_tpu_torch.pipeline import Compressor, DEFAULT_SUPER_BATCH_PACKETS
-from gpuar_tpu_torch.parallel.codec import BUCKET_ROWS
 from gpuar_tpu_torch.parallel.mesh import MeshCodec
 
 # A card's batch in waves of the codec kernels' launch, a wave being as
@@ -157,17 +156,15 @@ class GPUCompressor(Compressor):
     def decode_submit(self, packets: np.ndarray, raw_sizes: np.ndarray):
         return self.codec.decode_async(packets, raw_sizes)
 
-    # Compacted upload: the packet reader builds the row-aligned blob
-    # straight from its block buffer, in the pinned buffer the upload
-    # reads, and K2 reads it in place.
-    def decode_blob_geometry(self):
-        return self.codec.row_bytes, BUCKET_ROWS
-
+    # Dense upload: the packet reader reads each batch's packets, as they
+    # lie in the file, into the pinned buffer the upload reads, and K2
+    # reads them in place at their byte offsets.
     def decode_blob_buffer(self, nbytes: int):
         return self.codec.blob_buffer(nbytes)
 
-    def decode_submit_blob(self, blob, roff, comp_len, raw_sizes):
-        return self.codec.decode_blob_async(blob, roff, comp_len, raw_sizes)
+    def decode_submit_blob(self, blob, offsets, comp_len, raw_sizes):
+        return self.codec.decode_blob_async(blob, offsets, comp_len,
+                                            raw_sizes)
 
     def decode_fetch(self, handle):
         return self.codec.decode_body_wait(handle)

@@ -199,8 +199,8 @@ class Compressor:
     def decompress(self, src: str | Path, dst: str | Path,
                    monitor: ProgressMonitor | None = None) -> CompressionInfo:
         """Decompress src into dst, on three threads as ``compress``: the
-        reader thread walks batch k's packets while this thread fetches
-        batch k - 1 and the writer thread writes it."""
+        reader thread reads and walks batch k's packets while this thread
+        fetches batch k - 1 and the writer thread writes it."""
         monitor = monitor or ProgressMonitor(enabled=False)
         monitor.reset()
         info = CompressionInfo()
@@ -228,28 +228,27 @@ class Compressor:
             packets_in = _PacketReader(
                 fin, max_raw=getattr(self, "packet_size",
                                      UNCOMPRESSED_PACKET_SIZE))
-            # Backends exposing decode_blob_geometry take the compacted
-            # upload path: the reader builds the row-aligned device blob
-            # directly (one copy per packet), skipping the fixed-stride
-            # batch and the splice/expand host passes on the submit
-            # critical path (see read_batch_blob), in the host buffer that
-            # decode_blob_buffer hands out (GPUCompressor: the pinned one
-            # the upload reads, so no copy comes before the H2D).
-            blob_geom = getattr(self, "decode_blob_geometry", None)
-            geom = None if blob_geom is None else blob_geom()
-            submit = self.decode_submit if geom is None \
-                else self.decode_submit_blob
+            # Backends with decode_blob_buffer (GPUCompressor) take the
+            # dense blob: the reader reads each batch's packets, as they
+            # lie in the file, straight into the host buffer that
+            # decode_blob_buffer hands out (the pinned one the upload
+            # reads) and walks only their headers (read_batch_dense), so
+            # no packet byte is copied before the H2D.  The others get a
+            # fixed-stride batch.
+            dense = hasattr(self, "decode_blob_buffer")
+            submit = self.decode_submit_blob if dense else self.decode_submit
 
             def hand():
                 """Start the reader on the next batch: into the buffer
                 decode_blob_buffer hands out, or as a fixed-stride
                 batch."""
-                if geom is None:
+                if not dense:
                     reader.start(packets_in.read_batch, n)
                     return
                 with io:
-                    out = self.decode_blob_buffer(blob_capacity(n, *geom))
-                reader.start(packets_in.read_batch_blob, n, *geom, out)
+                    out = self.decode_blob_buffer(
+                        packets_in.dense_capacity(n))
+                reader.start(packets_in.read_batch_dense, n, out)
 
             hand()
             pending = None  # (handle, raw_sizes)
@@ -266,7 +265,7 @@ class Compressor:
                     pending = None
                 if not eof:
                     batch = reader.wait()
-                    if geom is None and batch[0] is None:
+                    if not dense and batch[0] is None:
                         batch = None   # read_batch's EOF
                     if batch is None:
                         eof = True
@@ -467,11 +466,23 @@ class _PacketReader:
     packet, src/gpu_compressor.cpp:299-310 — ~2.6 M syscalls on a 10 GB
     archive; the block walk keeps the same validation).
 
-    The file is read with ``readinto`` into one reused block buffer, and
-    ``native.walk_packets`` walks its packets into the batch: no Python
-    runs per packet, only once a block.  At the end of a block the
-    partial packet (under ``COMPRESSED_PACKET_SIZE`` bytes) moves to the
-    front and the next block is read behind it."""
+    Two forms, and a reader is read in one of them:
+
+    * ``read_batch`` and ``read_batch_blob`` read the file with
+      ``readinto`` into one reused block buffer, and ``native.
+      walk_packets`` copies its packets into the batch: no Python runs
+      per packet, only once a block.  At the end of a block the partial
+      packet (under ``COMPRESSED_PACKET_SIZE`` bytes) moves to the front
+      and the next block is read behind it.
+    * ``read_batch_dense`` reads the file straight into the caller's
+      buffer and walks only the packets' headers: the packets stay where
+      they were read, and the bytes read past a batch's last whole packet
+      (the carry) move to the front of the next batch's buffer."""
+
+    # The least read of the dense form (at most a block): the reads that
+    # finish a batch ask for about the bytes its remaining packets hold,
+    # and no fewer than this.
+    DENSE_TAIL = 64 << 10
 
     def __init__(self, fin, block_size: int = 8 << 20,
                  max_raw: int = UNCOMPRESSED_PACKET_SIZE):
@@ -481,24 +492,30 @@ class _PacketReader:
         # configurable-packet_size backend must reject raw sizes its
         # kernels cannot decode, not just ones over the global default).
         self._max_raw = max_raw
-        self._buf = np.empty(block_size + COMPRESSED_PACKET_SIZE, np.uint8)
+        self._buf = None   # the block buffer of the copying forms
         self._pos = 0   # next unread byte of _buf
         self._end = 0   # end of the bytes read into _buf
         self._eof = False
         self._sets = [None, None]   # see _batch_arrays
         self._turn = 0
+        # The dense form: the carry (the last batch's buffer, the carry's
+        # start and end in it), and the mean packet of the last walk that
+        # found packets, which sizes the reads that finish a batch.
+        self._carry = (None, 0, 0)
+        self._mean = 0.0
+        self.carried = 0   # bytes moved as carries
 
     def _batch_arrays(self, max_packets: int, nbytes: int = 0):
         """The next of two alternating sets of batch arrays: roff,
-        comp_len and raw_sizes int32 [max_packets], and a uint8 buffer of
-        at least nbytes.  A batch's arrays stay valid until two reads
-        later, so the drive loop may hold one batch pending while it reads
-        the next."""
+        comp_len and raw_sizes int32 [max_packets], a uint8 buffer of at
+        least nbytes and boff int64 [max_packets].  A batch's arrays stay
+        valid until two reads later, so the drive loop may hold one batch
+        pending while it reads the next."""
         s = self._sets[self._turn]
         if s is None or s[0].size < max_packets or s[3].size < nbytes:
             s = self._sets[self._turn] = (
                 *(np.empty(max_packets, np.int32) for _ in range(3)),
-                np.empty(nbytes, np.uint8))
+                np.empty(nbytes, np.uint8), np.empty(max_packets, np.int64))
         self._turn ^= 1
         return s
 
@@ -523,6 +540,9 @@ class _PacketReader:
         returns (packets, rows used).  Faults raise the ContainerError of
         a per-packet walk, with its text."""
         count = rows = 0
+        if self._buf is None:
+            self._buf = np.empty(self._block + COMPRESSED_PACKET_SIZE,
+                                 np.uint8)
         while count < max_packets:
             stop, n, used, r = native.walk_packets(
                 self._buf, self._pos, self._end, max_packets - count,
@@ -549,7 +569,7 @@ class _PacketReader:
         Returns (packets [p, COMPRESSED_PACKET_SIZE] uint8, raw_sizes [p])
         or (None, None) at EOF, valid until two reads later.
         """
-        _, comp_len, raw_sizes, packets = self._batch_arrays(
+        _, comp_len, raw_sizes, packets, _ = self._batch_arrays(
             max_packets, max_packets * COMPRESSED_PACKET_SIZE)
         count, _ = self._walk(max_packets, packets, COMPRESSED_PACKET_SIZE,
                               comp_len, raw_sizes)
@@ -585,7 +605,7 @@ class _PacketReader:
         elif out.size < cap:
             raise ValueError(f"out holds {out.size} B, the batch needs "
                              f"{cap}")
-        roff, comp_len, raw_sizes, _ = self._batch_arrays(max_packets)
+        roff, comp_len, raw_sizes, _, _ = self._batch_arrays(max_packets)
         count, rows = self._walk(max_packets, out, row_bytes, comp_len,
                                  raw_sizes, roff)
         if count == 0:
@@ -594,6 +614,93 @@ class _PacketReader:
         out[rows * row_bytes: kb * row_bytes] = 0
         return (out[: kb * row_bytes], roff[:count], comp_len[:count],
                 raw_sizes[:count])
+
+    def dense_capacity(self, max_packets: int) -> int:
+        """Bytes of the buffer ``read_batch_dense`` needs for batches of
+        max_packets packets: each at the longest packet, plus one block
+        (the most a read brings in past the batch's packets)."""
+        return max_packets * COMPRESSED_PACKET_SIZE + self._block
+
+    def read_batch_dense(self, max_packets: int,
+                         out: np.ndarray | None = None):
+        """Up to max_packets framed packets as a dense upload blob: the
+        packets as they lie in the file, read with ``readinto`` straight
+        into ``out`` and walked header by header (``native.walk_packets``
+        with no destination), so no packet byte is copied.  K2 reads the
+        blob in place at the packets' byte offsets.
+
+        ``out``: a flat uint8 array of at least ``dense_capacity`` bytes
+        (the codec's pinned upload buffer, handed out anew for each
+        batch); by default a new array.  The bytes read past the batch's
+        last whole packet are the carry: the next call moves them from
+        this buffer to the front of its own, so this buffer is only read
+        after the call (its upload may still be running).  The reads that
+        finish a batch ask for about the bytes its remaining packets hold
+        at the mean size of the packets last walked, so the carry stays
+        small.
+
+        Returns (blob uint8, a view of ``out``'s head that ends at the
+        last packet's last byte, byte_offsets [p] i64, comp_len [p] i32,
+        raw_sizes [p] i32) or None at EOF; the three index arrays are
+        valid until two reads later.  Validation matches read_batch."""
+        cap = self.dense_capacity(max_packets)
+        if out is None:
+            out = np.empty(cap, np.uint8)
+        elif out.size < cap:
+            raise ValueError(f"out holds {out.size} B, the batch needs "
+                             f"{cap}")
+        _, comp_len, raw_sizes, _, boff = self._batch_arrays(max_packets)
+        end = self._carry_in(out)
+        pos = count = 0
+        while count < max_packets:
+            stop, k, used, _ = native.walk_packets(
+                out, pos, end, max_packets - count, self._max_raw, None, 0,
+                0, comp_len, raw_sizes, count, boff=boff)
+            count, pos = count + k, pos + used
+            if k:
+                self._mean = used / k
+            if stop == native.WALK_BAD_HEADER:
+                total, raw = container.packet_sizes(
+                    out[pos: pos + PACKET_HEADER_LENGTH])
+                container.validate_packet_header(total, raw, self._max_raw)
+                raise RuntimeError("walk_packets refused a valid header")
+            if stop != native.WALK_PARTIAL:
+                break
+            got = 0 if self._eof else self._fin.readinto(memoryview(out)[
+                end: end + self._dense_read(max_packets - count,
+                                            end - pos)]) or 0
+            if not got:
+                self._eof = True
+                if end == pos:
+                    break
+                raise container.ContainerError(
+                    "Incorrect file format: truncated packet "
+                    + ("header" if end - pos < PACKET_HEADER_LENGTH
+                       else "body"))
+            end += got
+        self._carry = (out, pos, end)
+        if count == 0:
+            return None
+        return out[:pos], boff[:count], comp_len[:count], raw_sizes[:count]
+
+    def _carry_in(self, out: np.ndarray) -> int:
+        """Move the last batch's carry to the front of out; returns its
+        bytes (the one copy of the dense form)."""
+        last, a, b = self._carry
+        self._carry = (None, 0, 0)
+        if b > a:
+            out[: b - a] = last[a:b]   # memmove where last is out
+            self.carried += b - a
+        return b - a
+
+    def _dense_read(self, packets: int, have: int) -> int:
+        """Bytes of the next read of a dense batch that lacks ``packets``
+        packets with ``have`` bytes of them read: what they hold at the
+        mean packet of the last walk (the packets just read, so the
+        estimate follows the file's content), at least DENSE_TAIL (the
+        first read, before any packet was walked), at most a block."""
+        want = int(packets * self._mean) - have
+        return min(self._block, max(self.DENSE_TAIL, want))
 
 
 class HostCompressor(Compressor):

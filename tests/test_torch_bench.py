@@ -629,6 +629,7 @@ def test_stage_hooks_patch_attributes_that_exist():
     for owner, attr in ((GPUCompressor, "encode_submit"),
                         (GPUCompressor, "decode_submit_blob"),
                         (port_native, "walk_packets"),
+                        (pipeline._PacketReader, "_carry_in"),
                         (port_native, "splice_at")):
         assert callable(getattr(owner, attr))
     threads = dict(stages.THREADS)
@@ -657,7 +658,7 @@ def test_stage_run_on_the_cpu(tmp_path, one_torch_thread):
     src.write_bytes(data)
     before = (DeviceCodec.fetch_blob, DeviceCodec._download,
               pipeline._Lane.wait, GPUCompressor.encode_submit,
-              port_native.walk_packets)
+              port_native.walk_packets, pipeline._PacketReader._carry_in)
     runs = {}
     for verb, gpu, a, b in (
             ("compress", GPUCompressor(devices=[CPU], packet_size=64,
@@ -677,11 +678,20 @@ def test_stage_run_on_the_cpu(tmp_path, one_torch_thread):
         line = stages.line(r, stages.STAGES[verb])
         assert line.startswith("wall ") and "reader: read" in line
     assert runs["decompress"]["threads"]["reader"]["walk"][0] > 0
+    # The dense reader's carry: one call a batch and the one that meets
+    # the end, its bytes beside its seconds.
+    dec = runs["decompress"]
+    assert dec["threads"]["reader"]["carry"][1] == 5
+    assert dec["bytes"]["carry"] >= 0 and runs["compress"]["bytes"] == {}
+    assert f"carry {dec['threads']['reader']['carry'][0]:.6f} s x5 " \
+        f"{dec['bytes']['carry']} B" in stages.line(
+            dec, stages.STAGES["decompress"])
     assert runs["compress"]["threads"]["main"]["splice"][1] == 4
     assert back.read_bytes() == data
     assert before == (DeviceCodec.fetch_blob, DeviceCodec._download,
                       pipeline._Lane.wait, GPUCompressor.encode_submit,
-                      port_native.walk_packets)
+                      port_native.walk_packets,
+                      pipeline._PacketReader._carry_in)
     assert not hasattr(pipeline, "open")
 
 

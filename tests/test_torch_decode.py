@@ -1,6 +1,7 @@
 """K2/K3 wrappers (gpuar_tpu_torch.ops.decode) against the Pallas decode
 kernel (interpret mode on the CPU), in the stride form and in the
-reader-built blob form.
+reader-built blob forms: the row form (96-byte rows) and the dense form
+(the packets as they lie in the file, the drive loops' form).
 
 On the CPU the wrappers run the plain version; the GPU-marked tests hold
 the CUDA kernel against it on the same cases.  Tolerance: 0 bytes, and
@@ -123,13 +124,18 @@ def case_packets(case):
     return data, sizes, golden_stride(data, sizes, stride)
 
 
-def blob_form(packets, sizes, packet_size):
-    """The reader-built form: (blob, byte offsets, comp_len) from
-    _PacketReader.read_batch_blob over the packets' .gip body."""
+def blob_form(packets, sizes, packet_size, dense=False):
+    """A reader-built form: (blob, byte offsets, comp_len) from
+    _PacketReader.read_batch_blob (the row form) or, with ``dense``,
+    read_batch_dense over the packets' .gip body."""
     lens = packets[:, 0].astype(np.int32) | (packets[:, 1].astype(np.int32)
                                              << 8)
     body = b"".join(packets[i, : lens[i]].tobytes() for i in range(len(lens)))
     reader = _PacketReader(io.BytesIO(body), max_raw=packet_size)
+    if dense:
+        blob, offs, comp_len, raw = reader.read_batch_dense(len(lens))
+        np.testing.assert_array_equal(raw, sizes)
+        return blob, offs, comp_len
     blob, roff, comp_len, raw = reader.read_batch_blob(len(lens), ROW_BYTES,
                                                        64)
     np.testing.assert_array_equal(raw, sizes)
@@ -142,7 +148,8 @@ def port_decode(form, packets, sizes, packet_size, device="cpu",
     if form == "stride":
         return decode.decode_batch(torch.from_numpy(packets).to(device), s,
                                    packet_size=packet_size, debug=debug)
-    blob, offs, _ = blob_form(packets, sizes, packet_size)
+    blob, offs, _ = blob_form(packets, sizes, packet_size,
+                              dense=form == "dense")
     return decode.decode_blob(torch.from_numpy(blob).to(device),
                               torch.from_numpy(offs).to(device), s,
                               packet_size=packet_size, debug=debug)
@@ -157,7 +164,7 @@ def pallas_decoded(case):
         packets, sizes, tile=8, packet_size=data.shape[1], interpret=True)
 
 
-@pytest.mark.parametrize("form", ["stride", "blob"])
+@pytest.mark.parametrize("form", ["stride", "blob", "dense"])
 @pytest.mark.parametrize("case", list(CASES))
 def test_decode_matches_pallas(case, form):
     data, sizes, packets = case_packets(case)
@@ -231,7 +238,7 @@ def raised_packets(check, flags, comp_len):
     return None
 
 
-@pytest.mark.parametrize("form", ["stride", "blob"])
+@pytest.mark.parametrize("form", ["stride", "blob", "dense"])
 def test_debug_flags_match_pallas(form):
     from gpuar_tpu.ops import pallas_decode
 
@@ -290,7 +297,7 @@ def test_decode_rejects_bad_input(bad):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("form", ["stride", "blob"])
+@pytest.mark.parametrize("form", ["stride", "blob", "dense"])
 @pytest.mark.parametrize("case", list(CASES))
 def test_kernel_matches_plain(cuda, case, form):
     data, sizes, packets = case_packets(case)
@@ -304,7 +311,7 @@ def test_kernel_matches_plain(cuda, case, form):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("form", ["stride", "blob"])
+@pytest.mark.parametrize("form", ["stride", "blob", "dense"])
 def test_debug_kernel_matches_plain(cuda, form):
     packets, comp_len, sizes, is_clean = debug_batch()
     before = _kernels.LAUNCHES["decode_debug"]
@@ -538,11 +545,12 @@ def test_kernel_partial_blocks_match_plain(cuda, n, p):
     decode.check_debug_flags(flags, comp_len, n)
 
 
-def edge_batch():
+def edge_batch(dense=False):
     """Full-size packets at the search's and the coder's edges: one
     repeated symbol (0x00, 0xFF: the descent's two ends), raw sizes 0, 1
     and 8191, the underflow adversary; then noise-bodied copies of the
-    compressible ones.  -> (data, sizes, blob, offs, comp_len, n_clean)."""
+    compressible ones.  -> (data, sizes, blob, offs, comp_len, n_clean),
+    the blob in the row form or, with ``dense``, the dense form."""
     from test_torch_encode import adversarial_underflow_packet
 
     P = 8192
@@ -562,13 +570,17 @@ def edge_batch():
         row[4: lens[i]] = rng.integers(0, 256, lens[i] - 4, np.uint8)
     all_pk = np.concatenate([packets, noisy])
     all_sizes = np.concatenate([sizes, sizes[[0, 1, 5]]])
-    blob, offs, comp_len = blob_form(all_pk, all_sizes, P)
+    blob, offs, comp_len = blob_form(all_pk, all_sizes, P, dense)
     return data, all_sizes, blob, offs, comp_len, len(sizes)
 
 
 @pytest.mark.gpu
-def test_kernel_edge_packets_match_plain(cuda):
-    data, sizes, blob, offs, comp_len, n = edge_batch()
+@pytest.mark.parametrize("form", ["rows", "dense"])
+def test_kernel_edge_packets_match_plain(cuda, form):
+    """K3 flags exactly the corrupt well-framed packets in either blob
+    form (in the dense form a packet's lookahead reads its neighbour's
+    bytes, not zeros)."""
+    data, sizes, blob, offs, comp_len, n = edge_batch(form == "dense")
     flags = hold_to_plain(cuda, blob, offs, sizes, 8192)
     raw = decode.decode_blob(*(torch.from_numpy(x).to(cuda)
                                for x in (blob, offs, sizes)))
@@ -578,3 +590,59 @@ def test_kernel_edge_packets_match_plain(cuda):
         decode.check_debug_flags(flags, comp_len, len(sizes))
     assert str(info.value).endswith(f"packets {list(range(n, len(sizes)))}")
     decode.check_debug_flags(flags[:, :n], comp_len[:n], n)
+
+
+def _card_batch_body(n: int, rng):
+    """n full packets of mixed contents, the last ragged, as a .gip body
+    behind three packets of another batch -> (data [n, 8192], sizes,
+    body)."""
+    P = 8192
+    data = rng.integers(0, 256, (n, P), np.uint8)
+    data[1::4] = rng.integers(60, 68, (len(data[1::4]), P), np.uint8)
+    data[2::4] = 0
+    sizes = np.full(n, P, np.int32)
+    sizes[-1] = 4000
+    data[-1, 4000:] = 0
+    head = rng.integers(0, 256, 3 * P, np.uint8)
+    body = native.encode_stream(np.concatenate([head, data.reshape(-1)[
+        : (n - 1) * P + 4000]]))
+    return data, sizes, body
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 63, 4097, 4224])
+def test_dense_kernel_matches_row_blob_and_plain(cuda, n):
+    """K2 and K3 on a dense blob of n packets (4224: the H100's batch)
+    equal them on the row blob of the same packets and the plain version
+    on the card at 0, and the data.  The dense batch is read behind a
+    batch of three packets at a block of 50,001 B: its first packets came
+    over as the carry, the last of them cut by the block's end."""
+    from gpuar_tpu_torch.ops.encode import out_geometry as geometry
+
+    data, sizes, body = _card_batch_body(n, np.random.default_rng(n))
+    reader = _PacketReader(io.BytesIO(body), block_size=50_001)
+    assert len(reader.read_batch_dense(3)[1]) == 3
+    assert reader.carried == 0
+    blob, offs, comp_len, raw = reader.read_batch_dense(n)
+    assert reader.carried > 0 and len(raw) == n
+    assert reader.read_batch_dense(n) is None
+    np.testing.assert_array_equal(raw, sizes)
+    rows = _PacketReader(io.BytesIO(body))
+    rows.read_batch_blob(3, ROW_BYTES, 64)
+    rblob, roff, _, _ = rows.read_batch_blob(n, ROW_BYTES, 64)
+    dense = [torch.from_numpy(x).to(cuda) for x in (blob, offs, raw)]
+    row = [torch.from_numpy(x).to(cuda)
+           for x in (rblob, roff.astype(np.int64) * ROW_BYTES, raw)]
+    out = decode.decode_blob(*dense)
+    dbg, flags = decode.decode_blob(*dense, debug=True)
+    want = decode.decode_blob(*row)
+    want_dbg, want_flags = decode.decode_blob(*row, debug=True)
+    stride = geometry(8192)[1] * 4
+    plain, plain_flags = torch_codec.decode_packets(
+        torch_codec.gather_regions(dense[0], dense[1], stride), dense[2],
+        8192, debug=True)
+    for got in (out, dbg, want, want_dbg):
+        assert torch.equal(got, plain)
+    assert torch.equal(flags, want_flags) and torch.equal(flags, plain_flags)
+    np.testing.assert_array_equal(out.cpu().numpy(), data)
+    decode.check_debug_flags(flags.cpu().numpy(), comp_len, n)

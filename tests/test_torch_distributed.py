@@ -147,7 +147,7 @@ _WORKER_STRIDE = textwrap.dedent("""
     else:
         from gpuar_tpu_torch.bench.sleep_backend import SleepCompressor
         be = SleepCompressor(gbps=50, super_batch_packets=2)
-    assert not hasattr(be, "decode_blob_geometry")
+    assert not hasattr(be, "decode_blob_buffer")
     d = distributed.DistributedCompressor(backend=be)
     d.compress(f"{tmp}/in.bin", f"{tmp}/out.gip")
     d.decompress(f"{tmp}/out.gip", f"{tmp}/back.bin")
@@ -320,28 +320,27 @@ def test_load_segment_equals_jax_and_truncation():
 
 
 def test_load_segment_blob_places_the_stride_loaders_packets():
-    """tests/test_distributed.py's check on the port: the blob loader puts
-    exactly the stride loader's packets at their rows, bucket-padded, and
-    raises on a body cut mid-packet."""
+    """tests/test_distributed.py's check on the port, in the dense form:
+    the blob loader puts exactly the stride loader's packets at their
+    byte offsets, the segment's body as it lies in the file, and raises
+    on a body cut mid-packet."""
     bodies = [bytes([i]) * (10 + 7 * i) for i in range(5)]
     blob = _framed_blob(bodies)
     idx = distributed.walk_packet_index(io.BytesIO(blob), len(blob))
-    row_bytes, bucket_rows = 96, 8
-    ublob, roff, clen, raw = distributed._load_segment_blob(
-        _body_view(distributed, blob), idx, row_bytes, bucket_rows)
+    ublob, offsets, clen, raw = distributed._load_segment_blob(
+        _body_view(distributed, blob), idx)
     packets, raw2 = distributed._load_segment(_body_view(distributed, blob),
                                               idx)
     np.testing.assert_array_equal(raw, raw2)
     np.testing.assert_array_equal(clen, np.diff(idx[0]).astype(np.int32))
     for i in range(len(bodies)):
-        a = int(roff[i]) * row_bytes
+        a = int(offsets[i])
         assert ublob[a: a + clen[i]].tobytes() == \
             packets[i, : clen[i]].tobytes(), f"packet {i}"
-    assert ublob.size % (bucket_rows * row_bytes) == 0
+    assert ublob.tobytes() == blob
     with pytest.raises(container.ContainerError, match="truncated"):
         distributed._load_segment_blob(
-            distributed._BodyView(io.BytesIO(blob[:-3]), 0), idx,
-            row_bytes, bucket_rows)
+            distributed._BodyView(io.BytesIO(blob[:-3]), 0), idx)
 
 
 def _framed_blob(bodies):

@@ -1,12 +1,13 @@
 """The port's --multihost loops on three threads, and each owned segment's
-blob built in the upload buffer the backend hands out.
+dense blob read into the upload buffer the backend hands out.
 
 ``DistributedCompressor`` reads on a reader thread and writes on a writer
 thread (``pipeline._Lane``) while its own thread submits, fetches and runs
-the collectives.  Here, on the CPU: ``native.expand_at(..., out=)`` into a
-poisoned buffer equals the fresh blob and allocates nothing; a segment's
-blob is built in the buffer ``decode_blob_buffer`` hands out and uploaded
-from it with no copy; worlds of 1 (a FileStore world of one), 2 and 3 run
+the collectives.  Here, on the CPU: a segment's dense blob read into a
+poisoned buffer holds the segment's body, decodes to what the JAX
+package's row blob decodes to and allocates nothing; it is read into the
+buffer ``decode_blob_buffer`` hands out and uploaded from it with no
+copy; worlds of 1 (a FileStore world of one), 2 and 3 run
 the threaded loops over a backend whose buffers are poisoned when handed
 out and when their slot is taken again, with slowed lanes, and write the
 JAX package's archive; faults on either lane, and a body cut mid-packet,
@@ -31,10 +32,10 @@ from gpuar_tpu_torch import container
 from gpuar_tpu_torch import native as port_native
 from gpuar_tpu_torch.bench import scaling
 from gpuar_tpu_torch.parallel import distributed
-from gpuar_tpu_torch.parallel.codec import BUCKET_ROWS
+from gpuar_tpu_torch.config import COMPRESSED_PACKET_SIZE
+from gpuar_tpu_torch.parallel.codec import DeviceCodec
 from gpuar_tpu_torch.parallel.runner import GPUCompressor
 from gpuar_tpu_torch.pipeline import HostCompressor as PortHost
-from gpuar_tpu_torch.pipeline import blob_capacity
 from test_torch_host import jax_native
 from test_torch_pipeline import (
     _jax_archive,
@@ -86,60 +87,60 @@ def _segment_body(shape: str) -> bytes:
 
 @pytest.mark.parametrize("shape", ["one packet", "ragged last packet",
                                    "exact rows", "full segment at P = 64"])
-def test_expand_at_into_a_poisoned_buffer_equals_the_fresh_blob(shape):
-    """A segment's blob built by ``expand_at(..., out=)`` in a buffer
-    filled with 0xAB equals the fresh ``np.zeros`` blob (and the JAX
-    package's) over all kb * row_bytes bytes: each packet's row tail and
-    the bucket's padding rows are written; the bytes past the blob are
-    left alone; and the call allocates nothing."""
+def test_dense_segment_blob_in_a_poisoned_buffer_decodes_as_the_rows(shape):
+    """A segment's dense blob read into a buffer filled with 0xAB is the
+    segment's body at the head of the buffer, each packet at its walked
+    byte offset with the bytes the JAX package's row blob holds at its
+    row; the bytes past it are left alone; the load allocates nothing;
+    and a segment of coded packets decodes (DeviceCodec on the CPU) to
+    what the row blob decodes to."""
+    from gpuar_tpu.parallel import distributed as jax_side
+
     body = _segment_body(shape)
     seg = distributed.walk_packet_index(io.BytesIO(body), len(body))
+    out = np.full(256 * COMPRESSED_PACKET_SIZE, POISON, np.uint8)
     view = distributed._BodyView(io.BytesIO(body), 0)
-    row_bytes, bucket_rows = 96, BUCKET_ROWS
-    fresh, roff, clen, raw = distributed._load_segment_blob(
-        view, seg, row_bytes, bucket_rows)
-    assert fresh.size % (bucket_rows * row_bytes) == 0
-    offsets = roff.astype(np.int64) * row_bytes
-    np.testing.assert_array_equal(
-        fresh, jax_native().expand_at(np.frombuffer(body, np.uint8),
-                                      offsets, clen, fresh.size))
-    out = np.full(blob_capacity(256, row_bytes, bucket_rows), POISON,
-                  np.uint8)
-    data = np.frombuffer(body, np.uint8)
     tracemalloc.start()
     try:
-        got = port_native.expand_at(data, offsets, clen, fresh.size, out=out)
+        blob, offsets, clen, raw = distributed._load_segment_blob(
+            view, seg, out)
         _, peak = tracemalloc.get_traced_memory()
     finally:
         tracemalloc.stop()
-    # Python's own small objects only: a blob would be fresh.size B
-    # (numpy's arrays are traced), at least 393,216 here.
-    assert peak < 65536 <= fresh.size, f"expand_at(out=) allocated {peak} B"
-    assert got.ctypes.data == out.ctypes.data and got.size == fresh.size
-    np.testing.assert_array_equal(got, fresh)
-    assert (out[fresh.size:] == POISON).all()
+    # Python's own small objects and the index arrays only: a copy of the
+    # body would be at least its size (numpy's arrays are traced).
+    assert peak < 16384 + 16 * len(clen), f"the load allocated {peak} B"
+    assert blob.ctypes.data == out.ctypes.data and blob.tobytes() == body
+    assert (out[len(body):] == POISON).all()
+    assert offsets.dtype == np.int64
+    np.testing.assert_array_equal(offsets, seg[0, :-1] - seg[0, 0])
+    rows, roff, rlen, rraw = jax_side._load_segment_blob(
+        jax_side._BodyView(io.BytesIO(body), 0), seg, 96, 64)
+    np.testing.assert_array_equal(clen, rlen)
+    np.testing.assert_array_equal(raw, rraw)
+    for i, (o, n) in enumerate(zip(offsets, clen)):
+        assert blob[o: o + n].tobytes() == \
+            rows[roff[i] * 96: roff[i] * 96 + n].tobytes(), f"packet {i}"
+    if shape == "full segment at P = 64":
+        codec = DeviceCodec(CPU, packet_size=64)
+        want = codec.decode_body_wait(codec.decode_blob_async(
+            rows, roff.astype(np.int64) * 96, rlen, rraw)).copy()
+        got = codec.decode_body_wait(codec.decode_blob_async(
+            blob, offsets, clen, raw))
+        np.testing.assert_array_equal(got, want)
+        assert got.tobytes() == port_native.decode_stream(body, 256 * 64)
+    with pytest.raises(ValueError, match="segment needs"):
+        distributed._load_segment_blob(view, seg, out[: len(body) - 1])
 
 
-def test_expand_at_out_refuses_what_it_cannot_zero():
-    """out= needs a flat writable uint8 array of blob_cap bytes; with or
-    without it, the offsets must ascend without overlap (the scatter
-    zeroes the gaps between them)."""
+def test_expand_at_refuses_offsets_out_of_order():
+    """The stride loader's scatter needs offsets that ascend without
+    overlap (it zeroes the gaps between them)."""
     body = np.arange(30, dtype=np.uint8)
     lengths = np.array([10, 10, 10], np.int32)
-    out = np.zeros(64, np.uint8)
-    with pytest.raises(ValueError, match="not ascending"):
-        port_native.expand_at(body, np.array([20, 0, 40]), lengths, 64,
-                              out=out)
-    with pytest.raises(ValueError, match="not ascending"):
-        port_native.expand_at(body, np.array([0, 5, 40]), lengths, 64,
-                              out=out)
-    for bad in (np.zeros(63, np.uint8), np.zeros((8, 8), np.uint8),
-                np.zeros(64, np.int8), np.zeros(128, np.uint8)[::2]):
-        with pytest.raises(ValueError, match="out must be"):
-            port_native.expand_at(body, np.array([0, 16, 40]), lengths, 64,
-                                  out=bad)
-    with pytest.raises(ValueError, match="not ascending"):
-        port_native.expand_at(body, np.array([20, 0, 40]), lengths, 64)
+    for offsets in ([20, 0, 40], [0, 5, 40]):
+        with pytest.raises(ValueError, match="not ascending"):
+            port_native.expand_at(body, np.array(offsets), lengths, 64)
     blob = port_native.expand_at(body, np.array([0, 16, 40]), lengths, 64)
     assert blob[:16].tolist() == list(range(10)) + [0] * 6
 
@@ -164,8 +165,8 @@ def test_read_segment_reads_into_the_reused_array():
 
 def test_segment_blob_built_in_the_handed_buffer_goes_up_without_a_copy(
         monkeypatch):
-    """On a CPU device, the blob ``_load_segment_blob`` builds in the
-    buffer ``decode_blob_buffer`` handed out shares its memory, and
+    """On a CPU device, the dense blob ``_load_segment_blob`` reads into
+    the buffer ``decode_blob_buffer`` handed out shares its memory, and
     ``MeshCodec._staged`` uploads that buffer itself (no copy); the
     decode equals the packets' raw bytes."""
     from gpuar_tpu_torch.parallel.mesh import MeshCodec
@@ -177,12 +178,10 @@ def test_segment_blob_built_in_the_handed_buffer_goes_up_without_a_copy(
     seg = distributed.walk_packet_index(io.BytesIO(body), len(body))
     be = GPUCompressor(devices=[CPU, CPU], packet_size=64,
                        super_batch_packets=8)
-    row_bytes, bucket_rows = be.decode_blob_geometry()
-    handed = be.decode_blob_buffer(blob_capacity(8, row_bytes, bucket_rows))
+    handed = be.decode_blob_buffer(8 * COMPRESSED_PACKET_SIZE)
     handed.fill(POISON)
     loaded = distributed._load_segment_blob(
-        distributed._BodyView(io.BytesIO(body), 0), seg, row_bytes,
-        bucket_rows, handed, np.empty(len(body), np.uint8))
+        distributed._BodyView(io.BytesIO(body), 0), seg, handed)
     assert np.shares_memory(loaded[0], handed)
     assert loaded[0].ctypes.data == handed.ctypes.data
     staged, stage = [], MeshCodec._staged
@@ -196,6 +195,31 @@ def test_segment_blob_built_in_the_handed_buffer_goes_up_without_a_copy(
     raw = be.decode_fetch(be.decode_submit_blob(*loaded))
     assert staged == [("blob", handed.ctypes.data)]
     assert raw.reshape(-1)[: data.size].tobytes() == data.tobytes()
+
+
+def test_multihost_dense_decompress_scatters_nothing(tmp_path, monkeypatch,
+                                                     one_torch_thread):
+    """A world of one over GPUCompressor on two CPU shards, segments of
+    100 packets at P = 64: decompress calls no ``expand_at`` (each
+    segment is read into the handed buffer as it lies in the archive)
+    and writes what HostCompressor's decompress writes."""
+    data = np.random.default_rng(0xD5E).integers(0, 256, 333 * 64 + 17,
+                                                 np.uint8)
+    data[64 * 50: 64 * 150] = 4
+    src, gip = tmp_path / "in.bin", tmp_path / "in.gip"
+    src.write_bytes(data.tobytes())
+    gip.write_bytes(_jax_archive(data.tobytes(), 64))
+    PortHost(super_batch_packets=100).decompress(gip, tmp_path / "host.bin")
+
+    def scatter(*args, **kw):
+        raise AssertionError("expand_at on the dense path")
+
+    monkeypatch.setattr(port_native, "expand_at", scatter)
+    d = distributed.DistributedCompressor(backend=GPUCompressor(
+        devices=[CPU, CPU], packet_size=64, super_batch_packets=100))
+    bounded(d.decompress, gip, tmp_path / "back.bin")
+    assert (tmp_path / "back.bin").read_bytes() == \
+        (tmp_path / "host.bin").read_bytes() == data.tobytes()
 
 
 @pytest.mark.gpu

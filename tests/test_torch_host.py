@@ -245,13 +245,18 @@ def test_file_header_round_trip_equals_jax(sizes):
         port_container.FileHeader.from_bytes(mine.to_bytes()[:19])
 
 
-def _mixed_file(path, seed: int, size: int):
+def _mixed_data(seed: int, size: int) -> np.ndarray:
     rng = np.random.default_rng(seed)
     data = rng.integers(0, 256, size, np.uint8)
     data[P: 2 * P] = 0
     data[2 * P: 3 * P] = np.frombuffer(
         (b"the quick brown fox jumps over the lazy dog. " * 200)[:P],
         np.uint8)
+    return data
+
+
+def _mixed_file(path, seed: int, size: int):
+    data = _mixed_data(seed, size)
     path.write_bytes(data.tobytes())
     return data.tobytes()
 
@@ -372,6 +377,177 @@ def test_packet_reader_reused_destination_equals_jax(
     with pytest.raises(ValueError, match="needs"):
         port_pipeline._PacketReader(io.BytesIO(body)).read_batch_blob(
             *args, out=out[:-1])
+
+
+# --- the dense form: the packets read into the caller's buffer ------------
+
+
+def _dense_body(corpus: str, jax_golden) -> bytes:
+    """The JAX package's .gip body of 9 * P + 777 B: the mixed file, or
+    random bytes."""
+    if corpus == "mixed":
+        data = _mixed_data(0x4058, 9 * P + 777)
+    else:
+        data = np.random.default_rng(0x4058).integers(0, 256, 9 * P + 777,
+                                                      np.uint8)
+    return jax_golden.encode_stream(data)
+
+
+def _check_dense_batches(body: bytes, block_size: int, max_packets: int,
+                         outs=None):
+    """read_batch_dense against the row reader and the JAX reader, batch
+    by batch to the end of the body: the same comp_len and raw_sizes,
+    int64 byte offsets of back-to-back packets, and a blob that is the
+    body's next bytes, ending at the last packet's last byte.  ``outs``:
+    buffers handed out in turn (default: none, a new array a batch).
+    Returns the number of batches."""
+    from gpuar_tpu.pipeline import _PacketReader as JaxReader
+
+    mine = port_pipeline._PacketReader(io.BytesIO(body),
+                                       block_size=block_size)
+    rows = port_pipeline._PacketReader(io.BytesIO(body),
+                                       block_size=block_size)
+    theirs = JaxReader(io.BytesIO(body), block_size=block_size)
+    at = batches = 0
+    while True:
+        out = None if outs is None else outs[batches % len(outs)]
+        got = mine.read_batch_dense(max_packets, out)
+        b = rows.read_batch_blob(max_packets, 96, 64)
+        c = theirs.read_batch_blob(max_packets, 96, 64)
+        if got is None:
+            assert b is None and c is None
+            break
+        blob, offsets, comp_len, raw_sizes = got
+        for other in (b, c):
+            np.testing.assert_array_equal(comp_len, other[2])
+            np.testing.assert_array_equal(raw_sizes, other[3])
+        assert offsets.dtype == np.int64 and offsets[0] == 0
+        np.testing.assert_array_equal(np.diff(offsets), comp_len[:-1])
+        assert blob.size == offsets[-1] + comp_len[-1]
+        if out is not None:
+            assert blob.ctypes.data == out.ctypes.data
+        assert blob.tobytes() == body[at: at + blob.size]
+        at += blob.size
+        batches += 1
+    assert at == len(body)
+    return batches
+
+
+@pytest.mark.parametrize("max_packets", [1, 3, 7, 8192])
+@pytest.mark.parametrize("block_size", [100, 5000, 8 << 20])
+@pytest.mark.parametrize("corpus", ["mixed", "random"])
+def test_dense_reader_equals_row_and_jax_readers(corpus, block_size,
+                                                 max_packets, jax_golden):
+    """The dense reader gives the row reader's and the JAX reader's
+    comp_len and raw_sizes batch by batch, and each packet's bytes at its
+    byte offset are the file's, whether a packet straddles blocks of
+    100 B, 5000 B or none and whatever the batch cuts."""
+    body = _dense_body(corpus, jax_golden)
+    assert _check_dense_batches(body, block_size, max_packets) \
+        == -(-10 // max_packets)
+
+
+@pytest.mark.parametrize("buffers", [1, 2])
+@pytest.mark.parametrize("max_packets", [1, 2, 3])
+def test_dense_reader_reused_destination(max_packets, buffers, jax_golden):
+    """Buffers filled with 0xFF and handed out in turn, one reused for
+    every batch (the carry moves within it) or two alternating (the drive
+    loop's rotation), give the same batches; a buffer under
+    dense_capacity is refused."""
+    body = _dense_body("mixed", jax_golden)
+    cap = port_pipeline._PacketReader(io.BytesIO(body), block_size=5000) \
+        .dense_capacity(max_packets)
+    assert cap == max_packets * 8704 + 5000
+    outs = [np.full(cap, 0xFF, np.uint8) for _ in range(buffers)]
+    assert _check_dense_batches(body, 5000, max_packets, outs) >= 4
+    with pytest.raises(ValueError, match="needs"):
+        port_pipeline._PacketReader(io.BytesIO(body)).read_batch_dense(
+            max_packets, np.empty(max_packets * 8704 + (8 << 20) - 1,
+                                  np.uint8))
+
+
+def test_dense_reader_without_the_carry_fails(monkeypatch, jax_golden):
+    """A mutant that drops the carry instead of moving it fails the dense
+    reader's check (the next batch starts mid-packet)."""
+    body = _dense_body("random", jax_golden)
+    assert _check_dense_batches(body, 5000, 3) == 4
+
+    def dropped(self, out):
+        self._carry = (None, 0, 0)
+        return 0
+
+    monkeypatch.setattr(port_pipeline._PacketReader, "_carry_in", dropped)
+    with pytest.raises((AssertionError, port_container.ContainerError)):
+        _check_dense_batches(body, 5000, 3)
+
+
+def test_dense_reader_keeps_the_carry_small(jax_golden):
+    """On random packets of one size, the reads that finish a batch ask
+    for the bytes its remaining packets hold: each batch's carry is at
+    most DENSE_TAIL and a packet, and ``carried`` sums them."""
+    rng = np.random.default_rng(0x4059)
+    body = jax_golden.encode_stream(rng.integers(0, 256, 60 * P, np.uint8))
+    reader = port_pipeline._PacketReader(io.BytesIO(body))
+    bound = reader.DENSE_TAIL + 8704
+    carries = []
+    while reader.read_batch_dense(7) is not None:
+        _, a, b = reader._carry
+        assert b - a <= bound
+        carries.append(b - a)
+    assert len(carries) == 9 and sum(carries) == reader.carried
+
+
+@pytest.mark.parametrize("block_size", [100, 8 << 20])
+@pytest.mark.parametrize("fault", ["total_under_4", "total_over_8704",
+                                   "raw_over_max", "cut_in_header",
+                                   "cut_in_body"])
+def test_dense_reader_faults_equal_the_row_reader(fault, block_size):
+    """Each header fault and each cut raises the row reader's
+    ContainerError, with its text, at a backend packet_size of 4096."""
+    body = _faulty_body(fault)
+    texts = []
+    for method in ("read_batch_dense", "read_batch_blob"):
+        reader = port_pipeline._PacketReader(
+            io.BytesIO(body), block_size=block_size, max_raw=4096)
+        args = (2,) if method == "read_batch_dense" else (2, 96, 64)
+        with pytest.raises(port_container.ContainerError) as e:
+            _batches(reader, method, args)
+        texts.append(str(e.value))
+    assert texts[0] == texts[1]
+    assert ("truncated" in texts[0]) == fault.startswith("cut")
+
+
+def test_header_walk_copies_nothing():
+    """walk_packets with no destination writes the packets' byte offsets
+    (from the buffer's start) and leaves the buffer as it was."""
+    buf = np.frombuffer(port_native.encode_stream(
+        np.arange(3 * P + 5, dtype=np.uint8)), np.uint8).copy()
+    before = buf.copy()
+    comp_len, raw_sizes = np.empty(5, np.int32), np.empty(5, np.int32)
+    boff = np.full(5, -1, np.int64)
+    lens = []
+    at = 0
+    while at < buf.size:
+        lens.append(int(buf[at]) | int(buf[at + 1]) << 8)
+        at += lens[-1]
+    stop, n, used, rows = port_native.walk_packets(
+        buf, lens[0], buf.size, 4, P, None, 0, 0, comp_len, raw_sizes, 1,
+        boff=boff)
+    assert (stop, n, used, rows) == (port_native.WALK_PARTIAL, 3,
+                                     buf.size - lens[0], 0)
+    np.testing.assert_array_equal(comp_len[1:4], lens[1:])
+    np.testing.assert_array_equal(raw_sizes[1:4], [P, P, 5])
+    np.testing.assert_array_equal(boff[1:4], np.cumsum(lens)[:-1])
+    assert len(lens) == 4
+    assert boff[0] == boff[4] == -1
+    np.testing.assert_array_equal(buf, before)
+    with pytest.raises(ValueError, match="needs boff"):
+        port_native.walk_packets(buf, 0, buf.size, 5, P, None, 0, 0,
+                                 comp_len, raw_sizes, 0)
+    with pytest.raises(ValueError, match="boff"):
+        port_native.walk_packets(buf, 0, buf.size, 5, P, None, 0, 0,
+                                 comp_len, raw_sizes, 0,
+                                 boff=np.empty(5, np.int32))
 
 
 @pytest.mark.parametrize("bad", ["dst_strided", "comp_len_int64",

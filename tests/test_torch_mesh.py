@@ -17,10 +17,10 @@ import pytest
 import torch
 
 from gpuar_tpu_torch import container
-from gpuar_tpu_torch.parallel.codec import BUCKET_ROWS, DeviceCodec
+from gpuar_tpu_torch.parallel.codec import DeviceCodec
 from gpuar_tpu_torch.parallel.mesh import MeshCodec, shard_bounds
 from gpuar_tpu_torch.parallel.runner import GPUCompressor
-from gpuar_tpu_torch.pipeline import _PacketReader, blob_capacity
+from gpuar_tpu_torch.pipeline import _PacketReader
 from test_torch_host import jax_native
 
 CPU = torch.device("cpu")
@@ -67,9 +67,15 @@ def reference(batch):
     return body.tobytes(), lengths, packets, jbody, jlen
 
 
-def _blob(body: bytes, n: int, row_bytes: int):
-    return _PacketReader(io.BytesIO(body), max_raw=P).read_batch_blob(
-        n, row_bytes, BUCKET_ROWS)
+def _blob(body: bytes, n: int, form: str = "dense"):
+    """The batch's blob of packets at byte offsets: the dense form the
+    drive loops read, or the row form (96-byte rows, offsets = rows x
+    96), which is a valid blob of the same kind."""
+    reader = _PacketReader(io.BytesIO(body), max_raw=P)
+    if form == "dense":
+        return reader.read_batch_dense(n)
+    blob, roff, comp_len, raw = reader.read_batch_blob(n, 96, 64)
+    return blob, roff.astype(np.int64) * 96, comp_len, raw
 
 
 @pytest.mark.parametrize("k", [1, 2, 3, 8])
@@ -84,14 +90,15 @@ def test_encode_matches_one_codec_and_jax(k, batch, reference):
     assert got.tobytes() == jbody
 
 
+@pytest.mark.parametrize("form", ["dense", "rows"])
 @pytest.mark.parametrize("k", [1, 2, 3, 8])
-def test_decode_blob_and_stride_forms(k, batch, reference):
+def test_decode_blob_and_stride_forms(k, form, batch, reference):
     data, sizes = batch
     body, lengths, packets, _, _ = reference
     mesh = MeshCodec([CPU] * k, packet_size=P)
-    blob, roff, comp_len, raw = _blob(body, N, mesh.row_bytes)
+    blob, offsets, comp_len, raw = _blob(body, N, form)
     out = mesh.decode_body_wait(
-        mesh.decode_blob_async(blob, roff, comp_len, raw))
+        mesh.decode_blob_async(blob, offsets, comp_len, raw))
     np.testing.assert_array_equal(out, data)
     out = mesh.decode_body_wait(mesh.decode_async(packets, sizes))
     np.testing.assert_array_equal(out, data)
@@ -99,22 +106,22 @@ def test_decode_blob_and_stride_forms(k, batch, reference):
 
 @pytest.mark.parametrize("k", [1, 3])
 def test_decode_blob_built_in_blob_buffer(k, batch, reference):
-    """A blob the reader builds in blob_buffer decodes over two batches in
-    flight; one built in a slot that another submit has since taken is
-    refused, not silently copied."""
+    """A dense blob the reader reads into blob_buffer decodes over two
+    batches in flight; one read into a slot that another submit has since
+    taken is refused, not silently copied."""
     data, _ = batch
     body = reference[0]
     mesh = MeshCodec([CPU] * k, packet_size=P)
-    cap = blob_capacity(N, mesh.row_bytes, BUCKET_ROWS)
+    cap = _PacketReader(io.BytesIO(body)).dense_capacity(N)
     handles = []
     for _ in range(2):
         reader = _PacketReader(io.BytesIO(body), max_raw=P)
-        handles.append(mesh.decode_blob_async(*reader.read_batch_blob(
-            N, mesh.row_bytes, BUCKET_ROWS, out=mesh.blob_buffer(cap))))
+        handles.append(mesh.decode_blob_async(*reader.read_batch_dense(
+            N, out=mesh.blob_buffer(cap))))
     for h in handles:
         np.testing.assert_array_equal(mesh.decode_body_wait(h), data)
-    batch_blob = _PacketReader(io.BytesIO(body), max_raw=P).read_batch_blob(
-        N, mesh.row_bytes, BUCKET_ROWS, out=mesh.blob_buffer(cap))
+    batch_blob = _PacketReader(io.BytesIO(body), max_raw=P).read_batch_dense(
+        N, out=mesh.blob_buffer(cap))
     mesh.decode_body_wait(mesh.decode_async(reference[2], batch[1]))
     with pytest.raises(RuntimeError, match="other batch slot"):
         mesh.decode_blob_async(*batch_blob)
@@ -161,9 +168,9 @@ def test_debug_flags_come_back_in_packet_order(k, batch, reference):
     data, sizes = batch
     body, lengths, packets, _, _ = reference
     mesh = MeshCodec([CPU] * k, packet_size=P, debug=True)
-    blob, roff, comp_len, raw = _blob(body, N, mesh.row_bytes)
+    blob, offsets, comp_len, raw = _blob(body, N)
     out = mesh.decode_body_wait(
-        mesh.decode_blob_async(blob, roff, comp_len, raw))
+        mesh.decode_blob_async(blob, offsets, comp_len, raw))
     np.testing.assert_array_equal(out, data)
 
     bad = packets.copy()
@@ -333,11 +340,10 @@ def test_gpu_two_shards_on_one_card_equal_one_codec():
     got, got_len = mesh.encode_body_wait(mesh.encode_body_async(data, sizes))
     np.testing.assert_array_equal(got_len, lengths)
     assert got.tobytes() == body.tobytes()
-    blob, roff, comp_len, raw = _PacketReader(
-        io.BytesIO(body.tobytes())).read_batch_blob(301, mesh.row_bytes,
-                                                    BUCKET_ROWS)
+    blob, offsets, comp_len, raw = _PacketReader(
+        io.BytesIO(body.tobytes())).read_batch_dense(301)
     out = mesh.decode_body_wait(
-        mesh.decode_blob_async(blob, roff, comp_len, raw))
+        mesh.decode_blob_async(blob, offsets, comp_len, raw))
     np.testing.assert_array_equal(out, data)
     for codec in mesh.codecs:
         counts = codec.launches()

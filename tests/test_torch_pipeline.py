@@ -323,11 +323,100 @@ def test_gpu_decompress_uploads_pinned_blob(cuda, tmp_path, monkeypatch,
     assert seen == [(True, True)] * (1 + 2 * shards)
 
 
+def test_decompress_submits_the_handed_buffer_read_by_readinto(
+        tmp_path, monkeypatch, one_torch_thread):
+    """The dense feed on one CPU device, three batches of 2048 packets at
+    P = 64 (the JAX package's archive): each blob decode_submit_blob gets
+    is the head of the buffer decode_blob_buffer handed out (filled with
+    0xFF first), that buffer was filled by the file's readinto, every
+    packet walk was the header walk (no destination: no packet byte
+    copied), and the round trip is exact."""
+    from gpuar_tpu_torch import native, pipeline
+
+    rng = np.random.default_rng(0xDE45)
+    data = rng.integers(0, 256, 3 * 2048 * 64 - 1000, np.uint8)
+    data[: 64 * 500] = 9
+    gip = tmp_path / "jax.gip"
+    gip.write_bytes(_jax_archive(data.tobytes(), 64))
+    gpu = GPUCompressor(devices=[CPU], packet_size=64,
+                        super_batch_packets=2048)
+    handed, submitted, reads, walks = [], [], [], []
+    hand, submit = GPUCompressor.decode_blob_buffer, \
+        GPUCompressor.decode_submit_blob
+    walk, real_open = native.walk_packets, open
+
+    def handing(self, nbytes):
+        buf = hand(self, nbytes)
+        buf.fill(0xFF)
+        handed.append(buf)
+        return buf
+
+    def submitting(self, blob, *rest):
+        submitted.append((blob, len(handed)))
+        return submit(self, blob, *rest)
+
+    def walking(buf, start, end, max_packets, max_raw, dst, *rest, **kw):
+        walks.append(dst is None)
+        return walk(buf, start, end, max_packets, max_raw, dst, *rest, **kw)
+
+    class Reading:
+        def __init__(self, f):
+            self._f = f
+
+        def readinto(self, b):
+            reads.append(np.frombuffer(b, np.uint8).ctypes.data)
+            return self._f.readinto(b)
+
+        def __getattr__(self, name):
+            return getattr(self._f, name)
+
+    monkeypatch.setattr(GPUCompressor, "decode_blob_buffer", handing)
+    monkeypatch.setattr(GPUCompressor, "decode_submit_blob", submitting)
+    monkeypatch.setattr(native, "walk_packets", walking)
+    monkeypatch.setattr(pipeline, "open",
+                        lambda *a, **kw: Reading(real_open(*a, **kw)),
+                        raising=False)
+    gpu.decompress(gip, tmp_path / "back.bin")
+    assert (tmp_path / "back.bin").read_bytes() == data.tobytes()
+    assert len(submitted) == 3 and walks and all(walks)
+    for blob, k in submitted:
+        buf = handed[k - 1]
+        assert blob.ctypes.data == buf.ctypes.data
+        assert np.shares_memory(blob, buf)
+        lo, hi = buf.ctypes.data, buf.ctypes.data + buf.size
+        assert any(lo <= at < hi for at in reads), "no read into the blob"
+
+
+@pytest.mark.parametrize("shards", [1, 2])
+@pytest.mark.parametrize("case", ["p64", "last packet 256 B"])
+def test_dense_decompress_of_jax_archives(tmp_path, one_torch_thread, case,
+                                          shards):
+    """GPUCompressor on one CPU device and a MeshCodec of two decompress
+    the JAX package's archives bit for bit through the dense feed: at
+    P = 64 in batches of 100 packets, and at 8192 B in batches of three
+    with a last packet of 256 B."""
+    rng = np.random.default_rng(0xDE46)
+    if case == "p64":
+        packet, batch = 64, 100
+        data = rng.integers(0, 256, 777 * 64 + 13, np.uint8)
+        data[64 * 200: 64 * 400] = 3
+    else:
+        packet, batch = P, 3
+        data = rng.integers(0, 256, 7 * P + 256, np.uint8)
+        data[P: 3 * P] = 0
+    gip = tmp_path / "jax.gip"
+    gip.write_bytes(_jax_archive(data.tobytes(), packet))
+    GPUCompressor(devices=[CPU] * shards, packet_size=packet,
+                  super_batch_packets=batch).decompress(
+        gip, tmp_path / "back.bin")
+    assert (tmp_path / "back.bin").read_bytes() == data.tobytes()
+
+
 def test_compacted_body_path_matches_stride_path(rng):
     """DeviceCodec's compacted encode (device row gather + splice_at) gives
     exactly the stride path's spliced bytes, and the stride decode and the
-    reader-built blob decode both round-trip them."""
-    from gpuar_tpu_torch.parallel.codec import BUCKET_ROWS, DeviceCodec
+    reader's dense blob decode both round-trip them."""
+    from gpuar_tpu_torch.parallel.codec import DeviceCodec
     from gpuar_tpu_torch.pipeline import _PacketReader
 
     codec = DeviceCodec(CPU, packet_size=64)
@@ -347,10 +436,9 @@ def test_compacted_body_path_matches_stride_path(rng):
 
     np.testing.assert_array_equal(codec.decode(packets, sizes), data)
     reader = _PacketReader(io.BytesIO(expected), max_raw=64)
-    blob, roff, comp_len, raw = reader.read_batch_blob(n, codec.row_bytes,
-                                                       BUCKET_ROWS)
+    blob, offsets, comp_len, raw = reader.read_batch_dense(n)
     out = codec.decode_body_wait(
-        codec.decode_blob_async(blob, roff, comp_len, raw))
+        codec.decode_blob_async(blob, offsets, comp_len, raw))
     np.testing.assert_array_equal(out, data)
 
 
