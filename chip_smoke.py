@@ -17,7 +17,9 @@ exit, no result line):
      v8_raw_sum_256 (at least 256 a step of its chunk loop, so no step's
      table sum was hoisted or reused);
   2. K1 (encode) on the card against its plain PyTorch version and the
-     golden codec, on boundary sizes and content classes at 8192 B;
+     golden codec, on boundary sizes and content classes at 8192 B, and
+     G1 (the body's gather) on K1's packets against its plain version and
+     the golden codec's splice;
   3. K2 (decode) against its plain version from a compacted blob, and K3
      (debug decode) on clean and noise-bodied packets: equal flags, and
      ContainerError for exactly the corrupt packets, in the row blob and
@@ -38,15 +40,19 @@ exit, no result line):
      inside a packet and some carry must be non-empty), and held on every
      batch to K2 and K3 on the row blob of K1's packets (both forms timed
      in turns) and to the data;
-     each kernel held against its plain version on the same card tensors
-     at 0 tolerance on the full batch 0 and the ragged last batch; on
+     each kernel (G1 too) held against its plain version on the same card
+     tensors at 0 tolerance on the full batch 0 and the ragged last
+     batch; on
      batch 0
      the codec kernels' launch (threads and shared memory per block, one
      line: K1, K2 and K3 launch the same blocks), then K1, K2 and K3 timed
      on its first n packets for n in 1, 132, 1024, 4096, 8192 and one and
      two waves of the card (16,896 and 33,792 on the H100; batch 0's
      packets repeated past its end) (the 1-packet time is a kernel's chain
-     latency); then kernel against plain version at one small shape; then
+     latency); then G1 timed on K1's packets of batch 0 (random) and of
+     the first batch of text, at the card's batch and at one wave, beside
+     its plain version and the row compaction it replaced (``g1_times``);
+     then kernel against plain version at one small shape; then
      one warm smoke of the CLI (``c`` and ``d``) at --batch-packets of
      each size ``--sweep`` sweeps on a 64 MiB random file, printed on one
      line (``cli_sweep``);
@@ -55,7 +61,7 @@ exit, no result line):
      machine, over two DeviceCodecs of cuda:0 (each with its own streams):
      compress, decompress and debug decompress; the archive equals the
      host archive (and so phase 4's), md5 round trips, and every shard's
-     codec launched K1 and K2 (K3 under debug); then the kernels at the
+     codec launched K1, G1 and K2 (K3 under debug); then the kernels at the
      shards' shapes, on the shard's card: the first shard of batch 0 and
      the last, ragged shard of the last batch, each kernel held against
      its plain version at 0 tolerance as in phase 5;
@@ -64,7 +70,8 @@ exit, no result line):
      RANK / WORLD_SIZE / MASTER_ADDR=127.0.0.1 / a free MASTER_PORT, both
      on the local card(s); each rank prints its super-batch, which must
      be rank 0's, and its kernel launches, which
-     must show K1 and K2 (K3 under debug) on both ranks, and its
+     must show K1 and G1 (compress) and K2 (K3 under debug) on both
+     ranks, and its
      loop's coordination seconds and its reader's and writer's busy
      seconds (the multi-host loops run on three threads); the archive
      equals the host archive and both decodes round-trip.  The rank
@@ -112,15 +119,13 @@ functions with the most self time and every ``np.copyto`` by caller
 (cProfile); then one more of each with its stages timed by thread, no
 profiler on (``stage_profile``, the lines of
 ``gpuar_tpu_torch/bench/stages.py``: on the drive loop's thread the
-files' open and close, the wait for the upload buffer, submit, fetch,
-splice and its waits on the reader and the writer; the reader's read,
-header walk and carry, with the carry's bytes; the writer's write; the
-batch's device work by CUDA events, compress's blob download (D2H) as
-its own stage; the card's busy and idle seconds and the lead-in; the
+files' open and close, the wait for the upload buffer, submit, fetch
+and its waits on the reader and the writer (and the splice, which the
+GPU path no longer calls); the reader's read, header walk and carry,
+with the carry's bytes; the writer's write; the batch's device work by
+CUDA events, compress's body download (D2H) as its own stage; the card's busy and idle seconds and the lead-in; the
 wall), and decompress's feed on one line (read, header walk and carry in
-seconds, over the archive's bytes, the carry in bytes and bytes a GiB);
-and the splice of the super-batches into a fresh array, a reused buffer
-and in place (``splice_choice``).
+seconds, over the archive's bytes, the carry in bytes and bytes a GiB).
 
     python3 chip_smoke.py --parallel
 
@@ -138,9 +143,12 @@ corpora in interleaved rounds, the median and quartiles of each, and the
 size the rule of ``choose_waves`` picks (``runner.BATCH_WAVES`` holds the
 H100's); no kernels line.
 
-The second-to-last line is a JSON object of the kernels: for K1-K3 ms,
-plain_ms and bound_ms are batch 0's (K2's and K3's on its dense blob)
-and launches phase 4's; for P1-P4 ms
+The second-to-last line is a JSON object of the kernels: for K1-K3 and
+G1 ms, plain_ms and bound_ms are batch 0's (K2's and K3's on its dense
+blob, G1's on K1's packets: bytes, each body byte read and written once)
+and launches phase 4's; G1 replaces no TPU kernel (the JAX package's row
+compaction in XLA and its host splice; "replaces" names them); for P1-P4
+ms
 is the default's (P1 v0_3pass_256 and P2 1x(1,512) at 512 chains, P3
 level 5, P4 k_onehot at 1024 tables), plain_ms and bound_ms its full
 size's, launches phase 8's.  bound_ms is the larger of the bytes over
@@ -311,6 +319,19 @@ def encode_err(pk, ln, plain_pk, plain_ln) -> int:
     keep = torch.arange(pk.shape[1], device=pk.device)[None, :] \
         < ln.to(torch.int64)[:, None]
     return max_abs_err(pk * keep, plain_pk.to(pk.device) * keep)
+
+
+def gather_err(pk, ln):
+    """G1 on K1's packets and lengths (card tensors) against its plain
+    version on the same tensors -> (largest difference, G1's body): in the
+    totals, and in the body's bytes."""
+    from gpuar_tpu_torch.ops import encode
+
+    body, total = encode.gather_body(pk, ln)
+    plain, plain_total = encode.gather_body_plain(pk, ln)
+    t = int(total)
+    err = abs(t - int(plain_total))
+    return (err or max_abs_err(body[:t], plain[:t])), body[:t]
 
 
 def md5(path: Path, kind=hashlib.md5) -> str:
@@ -516,14 +537,23 @@ def phase2(dev, errs):
     if errs["encode"]:
         raise AssertionError(f"K1 differs from its plain version: "
                              f"{errs['encode']}")
+    # G1 on K1's packets (4 B to the whole stride, so every offset past
+    # the first few is unaligned): its plain version and the golden
+    # codec's splice of the same rows.
+    errs["gather"], body = gather_err(pk, ln)
+    golden = native.splice(pk.cpu().numpy(), ln.cpu().numpy())
+    if errs["gather"] or not np.array_equal(body.cpu().numpy(), golden):
+        raise AssertionError(f"G1 differs from its plain version "
+                             f"({errs['gather']}) or the golden splice")
     pk, ln = pk.cpu(), ln.cpu()
     for i, (name, c) in enumerate(chunks):
         if pk[i, : int(ln[i])].numpy().tobytes() != native.encode_packet(c):
             raise AssertionError(f"K1 lane {i} ({name}) differs from the "
                                  "golden codec")
-    say("2 K1", f"{len(chunks)} packets (sizes 0..8192, zero/0xFF/text/"
+    say("2 K1, G1", f"{len(chunks)} packets (sizes 0..8192, zero/0xFF/text/"
         "skewed/underflow adversary) equal the plain version and the "
-        "golden codec, max_abs_err 0", t0)
+        f"golden codec, max_abs_err 0; G1's {golden.size} B body equals its "
+        "plain version and the golden splice", t0)
     return data, sizes, pk.numpy(), ln.numpy()
 
 
@@ -743,8 +773,8 @@ def phase6(card, src, errs):
     for out in ("mesh_back.bin", "mesh_debug.bin"):
         if md5(WORK / out) != want:
             raise AssertionError(f"{out} does not round-trip (md5)")
-    if len(shards) < 2 or any(s["encode"] <= 0 or s["decode"] <= 0
-                              for s in shards) \
+    if len(shards) < 2 or any(s["encode"] <= 0 or s["gather"] <= 0
+                              or s["decode"] <= 0 for s in shards) \
             or any(s["decode_debug"] <= 0 for s in debug_shards):
         raise AssertionError(f"a shard did not launch its kernels: {shards} "
                              f"debug {debug_shards}")
@@ -784,10 +814,11 @@ def phase6(card, src, errs):
         for key in e:
             errs[key] = max(errs.get(key, 0), e[key])
         print(f"[{card}] batch {b} shard [{a}, {z}) [{z - a}, {P}] on {dev}: "
-              f"plain versions K1 {plain['encode']:.4f} ms, K2 "
-              f"{plain['decode']:.4f} ms, K3 {plain['decode_debug']:.4f} ms; "
-              f"K1 packets and lengths, K2 output, K3 output and flags equal "
-              f"them (max_abs_err 0) and the data; debug flags clean",
+              f"plain versions K1 {plain['encode']:.4f} ms, G1 "
+              f"{plain['gather']:.4f} ms, K2 {plain['decode']:.4f} ms, K3 "
+              f"{plain['decode_debug']:.4f} ms; K1 packets and lengths, G1 "
+              f"body, K2 output, K3 output and flags equal them "
+              f"(max_abs_err 0) and the data; debug flags clean",
               flush=True)
         say(f"6 batch {b} shard", "kernels against plain versions done", tb)
 
@@ -865,18 +896,19 @@ def phase7(card, src):
     t0 = time.perf_counter()
     gip, back, dbg = WORK / "world.gip", WORK / "world.bin", \
         WORK / "world_debug.bin"
-    runs = (("c", ["c", f"--in={src}", f"--out={gip}"], "encode"),
-            ("d", ["d", f"--in={gip}", f"--out={back}"], "decode"),
+    runs = (("c", ["c", f"--in={src}", f"--out={gip}"], ("encode", "gather")),
+            ("d", ["d", f"--in={gip}", f"--out={back}"], ("decode",)),
             ("d --debug", ["d", f"--in={gip}", f"--out={dbg}", "--debug"],
-             "decode_debug"))
+             ("decode_debug",)))
     size = src.stat().st_size
-    for name, args, kernel in runs:
+    for name, args, kernels in runs:
         results = run_world(args)
         for rank, (lines, seconds) in enumerate(results):
             info, mine = lines[-2], lines[-1]
-            if mine["rank"] != rank or mine["launches"][kernel] <= 0:
+            if mine["rank"] != rank or min(mine["launches"][k]
+                                           for k in kernels) <= 0:
                 raise AssertionError(f"{name}: rank {rank} did not launch "
-                                     f"{kernel}: {mine}")
+                                     f"{kernels}: {mine}")
             if mine["batch_packets"] != results[0][0][-1]["batch_packets"]:
                 raise AssertionError(f"{name}: rank {rank}'s super-batch "
                                      f"differs from rank 0's: {mine}")
@@ -899,7 +931,7 @@ def phase7(card, src):
         if md5(out) != want:
             raise AssertionError(f"{out.name} does not round-trip (md5)")
     say("7 multihost", "world 2 (c, d, d --debug): archive == host archive "
-        "(cmp), md5 round trips, K1 and K2 (K3 under debug) launched on "
+        "(cmp), md5 round trips, K1, G1 and K2 (K3 under debug) launched on "
         "both ranks", t0)
 
 
@@ -952,11 +984,11 @@ def stage_profile(card, gpu, src) -> None:
     """One more warm compress and decompress with each stage timed
     (``bench/stages.py``, no profiler), by thread: on the drive loop's
     thread the files' open and close, the wait for the slot's upload
-    buffer, the submit's host time, the fetch, the splice, and its waits
-    on the reader and the writer; on the reader's the file's read (and
-    the walk); on the writer's the write; and the batch's device work by
-    CUDA events on the codec's streams (the upload, the kernel, the
-    compaction or the download, and compress's blob download, D2H).  A
+    buffer, the submit's host time, the fetch, and its waits on the
+    reader and the writer; on the reader's the file's read (and the
+    walk); on the writer's the write; and the batch's device work by CUDA
+    events on the codec's streams (the upload, K1 and G1 or K2, the
+    download, and compress's body download, D2H).  A
     thread's stages are disjoint; the threads' and the device's overlap
     one another, so their sum may pass the wall, and the main thread's
     rest is the wall not in one of its stages."""
@@ -982,52 +1014,6 @@ def stage_profile(card, gpu, src) -> None:
           flush=True)
     if md5(WORK / "stage.bin") != md5(src):
         raise AssertionError("the stage-timed run does not round-trip")
-
-
-def splice_choice(card, gpu, src) -> None:
-    """The splice of the main path's super-batches (``gpu``'s) three ways,
-    on the blob K1 and the compaction leave in the pinned download buffer:
-    into a fresh array (the parent's), into a reused host buffer, and in
-    place in the pinned buffer itself (the drive loop's); 5 interleaved
-    rounds, the median and range of each."""
-    from gpuar_tpu_torch import native
-    from gpuar_tpu_torch.parallel.codec import DeviceCodec
-
-    codec = DeviceCodec(torch.device("cuda", 0))
-    raw = np.fromfile(src, np.uint8)
-    n = gpu.super_batch_packets
-    times: dict[str, list[float]] = {"fresh": [], "reused": [],
-                                     "in place": []}
-    work = torch.empty(n * codec.stride, dtype=torch.uint8,
-                       pin_memory=True).numpy()
-    reused = np.zeros_like(work)
-    for _ in range(5):
-        per = dict.fromkeys(times, 0.0)
-        for b in range(-(-raw.size // (n * P))):
-            data, sizes = main_path_batch(raw, b, n)
-            blob, offs, lens = codec.fetch_blob(
-                codec.encode_body_async(data, sizes))
-            want = native.splice_at(blob, offs, lens)
-            view = work[: blob.size]
-            view[:] = blob
-            for way, call in (
-                    ("fresh", lambda: native.splice_at(blob, offs, lens)),
-                    ("reused", lambda: native.splice_at(
-                        blob, offs, lens, out=reused)),
-                    ("in place", lambda: native.splice_at(
-                        view, offs, lens, out=view))):
-                t = time.perf_counter()
-                got = call()
-                per[way] += time.perf_counter() - t
-                if not np.array_equal(got, want):
-                    raise AssertionError(f"splice {way} differs")
-        for way, sec in per.items():
-            times[way].append(sec)
-    print(f"[{card}] splice of the {-(-raw.size // (n * P))} super-batches "
-          f"of {n} packets (5 rounds): " + "; ".join(
-        f"{way} median {float(np.median(v)):.6f} s "
-        f"[{min(v):.6f}, {max(v):.6f}]" for way, v in times.items()),
-        flush=True)
 
 
 # A card's batch of each of these waves of the codec kernels' launch
@@ -1259,9 +1245,10 @@ def ms_of(fn):
 
 
 def against_plain(dev, data: np.ndarray, sizes: np.ndarray, dense=None):
-    """K1, K2 and K3 on one batch's card tensors, each held against its
-    plain version on the same tensors at 0 tolerance: K1 packets' first
-    lengths[i] bytes and lengths; K2 output, K3 output and flags on
+    """K1, G1, K2 and K3 on one batch's card tensors, each held against
+    its plain version on the same tensors at 0 tolerance: K1 packets'
+    first lengths[i] bytes and lengths; G1's body of K1's packets; K2
+    output, K3 output and flags on
     ``dense`` (the batch as ``read_batch_dense`` read it from the
     archive: blob, byte offsets, comp_len, raw sizes; by default the
     dense blob of K1's packets, as a shard of one), and on the row blob
@@ -1278,6 +1265,8 @@ def against_plain(dev, data: np.ndarray, sizes: np.ndarray, dense=None):
         lambda: torch_codec.encode_packets(d, s, stride))
     e_enc = encode_err(pk, ln, p_pk, p_ln)
     del p_pk, p_ln
+    e_gat, _ = gather_err(pk, ln)
+    plain_gat, _ = ms_of(lambda: encode.gather_body_plain(pk, ln))
     if dense is None:
         dense = blob_of(pk.cpu().numpy(), ln.cpu().numpy(), dense=True)
     blob, offs, comp_len, rs = dense
@@ -1300,12 +1289,13 @@ def against_plain(dev, data: np.ndarray, sizes: np.ndarray, dense=None):
                 max_abs_err(rout, p_out), max_abs_err(rflags, p_flags),
                 max_abs_err(out, d))
     decode.check_debug_flags(flags.cpu().numpy(), comp_len, len(rs))
-    if e_enc or e_dec or e_dbg:
+    if e_enc or e_gat or e_dec or e_dbg:
         raise AssertionError(
             f"{list(data.shape)}: a kernel differs from its plain version "
-            f"(max_abs_err K1 {e_enc}, K2 {e_dec}, K3 {e_dbg})")
-    return ({"encode": e_enc, "decode": e_dec, "decode_debug": e_dbg},
-            {"encode": plain_enc, "decode": plain_dec,
+            f"(max_abs_err K1 {e_enc}, G1 {e_gat}, K2 {e_dec}, K3 {e_dbg})")
+    return ({"encode": e_enc, "gather": e_gat, "decode": e_dec,
+             "decode_debug": e_dbg},
+            {"encode": plain_enc, "gather": plain_gat, "decode": plain_dec,
              "decode_debug": plain_dbg})
 
 
@@ -1359,6 +1349,82 @@ def sweep(card, d, s, args) -> None:
         print(f"[{card}] sweep {name}, first n packets of batch 0 "
               f"(repeated past its end): {times}; n={sizes[-1]} / n=1 "
               f"{ms[sizes[-1]] / ms[1]:.3f}", flush=True)
+
+
+def row_compaction(packets: torch.Tensor, lengths: torch.Tensor,
+                   row_bytes: int = 96):
+    """The row compaction G1 replaced, timed beside it as the nearest
+    library route (the port no longer calls it): each packet's whole
+    96-byte rows gathered by PyTorch calls, a cumsum, a searchsorted and an
+    index_select (``_compact_rows`` of gpuar_tpu/parallel/mesh.py, as the
+    port ran it before G1), the host then splicing the padding out ->
+    (blob [rows, row_bytes], row offsets int64 [n], total rows 0-d)."""
+    n, stride = packets.shape
+    rows_pp = stride // row_bytes
+    cap = n * rows_pp
+    rcnt = (lengths.to(torch.int64) + row_bytes - 1) // row_bytes
+    ends = torch.cumsum(rcnt, 0)
+    roff = ends - rcnt
+    r = torch.arange(cap, dtype=torch.int64, device=packets.device)
+    p = torch.searchsorted(ends, r, right=True).clamp_(max=n - 1)
+    src = (p * rows_pp + (r - roff[p])).clamp_(0, cap - 1)
+    return packets.reshape(cap, row_bytes).index_select(0, src), roff, \
+        ends[-1]
+
+
+def g1_times(card, dev, raw: np.ndarray, n: int):
+    """G1 (with the offsets' cumsum it launches) on K1's packets of batch 0
+    (random) and of the batch that holds the file's text (byte 80 MiB:
+    the enwik8 and UTF-8 proxies), each at the card's batch of n packets
+    and at one wave (the batch's packets repeated past its end), CUDA
+    events, 20 launches a time; each held against its plain version at 0
+    and timed beside it and the row compaction it replaced (whose rows,
+    spliced on the host, must give G1's body).  The bound: each body byte
+    read and written once, the lengths and offsets read.
+    -> batch 0's (ms, plain ms, bound ms, bound by) at n."""
+    from gpuar_tpu_torch import native
+    from gpuar_tpu_torch.ops import encode
+    from gpuar_tpu_torch.parallel import runner
+
+    wave = runner.batch_packets(runner.launch_geometry(dev), 1)
+    out = None
+    for b, kind in ((0, "random"), ((80 * MIB) // (n * P), "text")):
+        data, sizes = main_path_batch(raw, b, n)
+        d, s = torch.from_numpy(data).to(dev), torch.from_numpy(sizes).to(dev)
+        pk, ln = encode.encode_batch(d, s)
+        del d, s
+        for m in (n, wave):
+            k = -(-m // pk.shape[0])
+            mp, ml = pk.repeat(k, 1)[:m], ln.repeat(k)[:m]
+            err, body = gather_err(mp, ml)
+            if err:
+                raise AssertionError(f"G1 differs from its plain version on "
+                                     f"batch {b} at {m} packets: {err}")
+            ms = timed(lambda: encode.gather_body(mp, ml), reps=20)
+            rows_ms = timed(lambda: row_compaction(mp, ml), reps=20)
+            plain_ms, _ = ms_of(lambda: encode.gather_body_plain(mp, ml))
+            if m == n:
+                blob, roff, _ = row_compaction(mp, ml)
+                lens = ml.cpu().numpy()
+                if not np.array_equal(native.splice_at(
+                        blob.cpu().numpy().reshape(-1),
+                        roff.cpu().numpy() * 96, lens), body.cpu().numpy()):
+                    raise AssertionError("the row compaction, spliced, is "
+                                         "not G1's body")
+                del blob, roff
+            t = body.numel()
+            least, by = bound(2 * t + 12 * m, 0, INT32_OPS_PER_S)
+            print(f"[{card}] G1 gather, batch {b} ({kind}) at {m} packets: "
+                  f"{t} B body, {ms:.4f} ms ({t / ms / 1e6:.4f} GB/s), "
+                  f"bound {least:.6f} ms ({by}), plain version "
+                  f"{plain_ms:.4f} ms, row compaction {rows_ms:.4f} ms; "
+                  f"max_abs_err 0", flush=True)
+            if out is None:
+                out = (ms, plain_ms, least, by)
+            del mp, ml, body
+        del pk, ln
+        torch.cuda.empty_cache()
+    return out
 
 
 def phase5(card, dev, src, errs, n: int):
@@ -1493,11 +1559,11 @@ def phase5(card, dev, src, errs, n: int):
                       (("encode", ms_enc), ("decode", ms_dec),
                        ("decode_debug", ms_dbg))}
         print(f"[{card}] batch {b} {list(data.shape)}: plain versions "
-              f"K1 {plain['encode']:.4f} ms, K2 {plain['decode']:.4f} ms, "
-              f"K3 {plain['decode_debug']:.4f} ms; K1 packets and lengths, "
-              f"K2 output, K3 "
-              f"output and flags equal them (max_abs_err 0) and the data; "
-              f"debug flags clean", flush=True)
+              f"K1 {plain['encode']:.4f} ms, G1 {plain['gather']:.4f} ms, "
+              f"K2 {plain['decode']:.4f} ms, K3 {plain['decode_debug']:.4f} "
+              f"ms; K1 packets and lengths, G1 body, K2 output, K3 output "
+              f"and flags equal them (max_abs_err 0) and the data; debug "
+              f"flags clean", flush=True)
         say(f"5 batch {b}", "kernels against plain versions done", tb)
         torch.cuda.empty_cache()
 
@@ -1515,6 +1581,7 @@ def phase5(card, dev, src, errs, n: int):
           f"{len(archive.ends)} reads, {len(mid)} ending inside a packet, "
           f"{reader.carried} B carried over {body_at} B of archive body",
           flush=True)
+    batch0["gather"] = g1_times(card, dev, raw, n)
 
     # Kernel against plain version at one small shape: 32 packets of text.
     small = raw[80 * MIB: 80 * MIB + 32 * P].reshape(32, P)
@@ -1529,6 +1596,8 @@ def phase5(card, dev, src, errs, n: int):
     pairs = {
         "encode": (lambda: encode.encode_batch(d, s),
                    lambda: torch_codec.encode_packets(d, s, stride)),
+        "gather": (lambda: encode.gather_body(pk, ln),
+                   lambda: encode.gather_body_plain(pk, ln)),
         "decode": (lambda: decode.decode_blob(*args),
                    lambda: torch_codec.decode_packets(rows, args[2], P)),
         "decode_debug": (lambda: decode.decode_blob(*args, debug=True),
@@ -1971,7 +2040,6 @@ def main() -> int:
             if opts.profile:
                 profile_main_path(CARD, gpu, src)
                 stage_profile(CARD, gpu, src)
-                splice_choice(CARD, gpu, src)
             times = phase5(CARD, dev, src, errs, gpu.super_batch_packets)
             cli_sweep(CARD)
             del gpu
@@ -1989,6 +2057,9 @@ def main() -> int:
 
     route = {"encode": ("K1 encode", "gpuar_tpu_torch/csrc/encode.cu",
                         "gpuar_tpu/ops/pallas_encode.py:167"),
+             "gather": ("G1 gather body", "gpuar_tpu_torch/csrc/gather.cu",
+                        "gpuar_tpu/parallel/mesh.py:74 (_compact_rows, XLA, "
+                        "and the host splice: no TPU kernel)"),
              "decode": ("K2 decode", "gpuar_tpu_torch/csrc/decode.cu",
                         "gpuar_tpu/ops/pallas_decode.py:237"),
              "decode_debug": ("K3 debug decode",

@@ -154,7 +154,7 @@ DISK_FILES = 7
 LAYERS = {
     "compress_gbps": "end to end: file bytes of every warm run / their "
                      "wall s, GPUCompressor().compress (file read, upload, "
-                     "K1, compaction, download, splice, write)",
+                     "K1, G1's gather of the body, download, write)",
     "decompress_gbps": "end to end: the same for "
                        "GPUCompressor().decompress",
     "compress_process_s": "drive loop: CompressionInfo.process_time of a "
@@ -162,8 +162,8 @@ LAYERS = {
                           "fetch on the loop's thread, the device work it "
                           "waits for)",
     "compress_io_s": "drive loop: CompressionInfo.io_time of a compress, "
-                     "mean (file read on the reader thread, splice, write "
-                     "on the writer thread; the threads overlap, so io "
+                     "mean (file read on the reader thread, write on the "
+                     "writer thread; the threads overlap, so io "
                      "plus process may exceed the wall)",
     "decompress_process_s": "drive loop: process_time of a decompress, "
                             "mean (submit, fetch and splice on the loop's "
@@ -209,9 +209,10 @@ LAYERS = {
     "decompress_write_s": "stages: the writer thread's write s in a "
                           "decompress, mean",
     "compress_splice_s": "stages: the loop thread's splice s "
-                         "(native.splice_at) in a compress, mean",
+                         "(native.splice_at) in a compress, mean; 0 since "
+                         "G1 gathers the body on the card",
     "compress_device_s": "stages: the union of a compress's device stages "
-                         "(H2D + K1 + compaction, D2H; CUDA events on the "
+                         "(H2D + K1 + G1's gather, D2H; CUDA events on the "
                          "host clock), s, mean",
     "decompress_device_s": "stages: the union of a decompress's device "
                            "stage (H2D + K2 + D2H), s, mean",
@@ -500,7 +501,8 @@ def device_trace(fn):
 
 # The codec kernels' launch counters (``_kernels.LAUNCHES``) -> the part of
 # their name in a trace's records.
-TRACE_NAMES = {"encode": "encode_kernel", "decode": "decode_kernel<false>",
+TRACE_NAMES = {"encode": "encode_kernel", "gather": "gather_body_kernel",
+               "decode": "decode_kernel<false>",
                "decode_debug": "decode_kernel<true>"}
 
 

@@ -13,11 +13,12 @@ program (``mock.patch`` for the run, undone after it; no profiler):
     read, and decompress's header walk and carry, with the carry's bytes)
     and the writer's (``gpuar-writer``: the write);
   * device stages, by CUDA events recorded on the codec's streams before
-    and after the call that enqueues the work: compress's upload, K1,
-    compaction and length download on the batch stream, and its blob
-    download (``D2H``: the copy ``fetch_blob`` enqueues on the fetch
-    stream); decompress's upload, K2 and download.  Every copy and kernel
-    the loops enqueue falls inside one.  An anchor event, recorded beside
+    and after the call that enqueues the work: compress's upload, K1, G1
+    (the body's gather, the stage's "compaction") and length download on
+    the batch stream, and its body download (``D2H``: the copy
+    ``DeviceCodec.encode_body_wait`` enqueues on the fetch stream);
+    decompress's upload, K2 and download.  Every copy and kernel the
+    loops enqueue falls inside one.  An anchor event, recorded beside
     the host clock right after a synchronise at the run's start, puts the
     device stages on the host clock.
 
@@ -57,8 +58,8 @@ BYTE_STAGES = ("carry",)
 
 
 def _on_fetch_stream(codec) -> bool:
-    """Whether the codec's call is enqueued on its fetch stream (the blob
-    download in ``fetch_blob``; its other downloads go on the batch
+    """Whether the codec's call is enqueued on its fetch stream (the body
+    download in ``encode_body_wait``; its other downloads go on the batch
     stream, inside the batch's device stage)."""
     return (torch.cuda.current_stream(codec.device).cuda_stream
             == codec._fetch_stream.cuda_stream)
@@ -82,7 +83,10 @@ def hooks(verb: str, compressor: type) -> list[tuple]:
                  _on_fetch_stream),
                 *common,
                 ("host", compressor, "encode_submit", "submit", None, None),
-                ("host", DeviceCodec, "fetch_blob", "fetch", None, None),
+                ("host", DeviceCodec, "encode_body_wait", "fetch", None,
+                 None),
+                # The GPU path splices nothing since G1 (the body comes
+                # down as it lies in the file): "splice" reads 0.
                 ("host", native, "splice_at", "splice", None, None)]
     return [("device", DeviceCodec, "decode_blob_async", "H2D + K2 + D2H",
              "_stream", None),

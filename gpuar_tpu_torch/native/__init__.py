@@ -2,8 +2,9 @@
 ``gpuar_tpu/native/golden.cpp``), built with g++ and loaded with ctypes.
 
 It is the port's ``--host`` codec (``pipeline.HostCompressor``), the deep
-check of ``verify_archive``, the host splice of the GPU path
-(``splice_at``), the stride batch of the multi-host loader
+check of ``verify_archive``, the splice of stride batches (``splice``;
+``splice_at``, the JAX package's splice of its row blob, which the GPU
+path no longer calls: G1 gathers its body on the card), the stride batch of the multi-host loader
 (``expand_at``), the decode reader's packet and header walks
 (``walk_packets``) and the stream codec of whole ``.gip``
 bodies (``encode_stream``, ``decode_stream``).  The library is compiled

@@ -46,6 +46,8 @@ SIGNATURES = {
     # gpuar_encode_occupancy(*blocks_per_sm): gpuar_encode's blocks that one
     # SM of the current device holds at once
     "gpuar_encode_occupancy": ("encode", [_VP]),
+    # gpuar_gather_body(packets, stride, ends, n, body, stream)
+    "gpuar_gather_body": ("gather", [_VP, _I32, _VP, _I32, _VP, _VP]),
     # gpuar_decode(blob, blob_len, offsets, region, raw_sizes, n,
     #              packet_size, out, flags, debug, stream)
     "gpuar_decode": ("decode", [_VP, _I64, _VP, _I32, _VP, _I32, _I32, _VP,
@@ -89,9 +91,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # ptxas's registers, stack and spills of every kernel), by source stem.
 BUILD_LOGS: dict[str, str] = {}
 
-# Kernel launches through the wrappers, by kernel: K1, K2 (release
-# decode) and K3 (debug decode).
-LAUNCHES = {"encode": 0, "decode": 0, "decode_debug": 0}
+# Kernel launches through the wrappers, by kernel: K1, G1 (the body
+# gather after K1), K2 (release decode) and K3 (debug decode).
+LAUNCHES = {"encode": 0, "gather": 0, "decode": 0, "decode_debug": 0}
 # The same launches by (kernel, CUDA stream handle).
 STREAM_LAUNCHES: dict[tuple[str, int], int] = {}
 

@@ -3,23 +3,23 @@
 The per-device part of ``gpuar_tpu/parallel/mesh.py::MeshCodec``; the port's
 ``parallel/mesh.py::MeshCodec`` runs one DeviceCodec per device.
 A batch goes up through a pinned host buffer on a side CUDA stream, runs
-through the K1 or K2/K3 kernel, and comes back through a pinned buffer;
+through K1 and G1 or through K2/K3, and comes back through a pinned buffer;
 the handle carries a CUDA event, so the pipeline's drive loop can submit
 batch N+1 before it fetches batch N (the job JAX's async dispatch does on
 the TPU).  Two slots of pinned buffers alternate, one per batch in flight.
 
-The encode result is compacted on the device before it is fetched: each
-packet's bytes are gathered into whole 96-byte rows of a dense blob
-(``compact_rows``), so the download carries compressed bytes, and the host
-strips the row padding with ``native.splice_at`` into the ``.gip`` body.
-Decode reads the reader's dense blob in place, the packets as they lie in
-the file at their byte offsets (K2 takes per-packet byte offsets), so
-there is no expand gather.
+The encode result is gathered on the device before it is fetched: G1
+(``ops.encode.gather_body``) puts each packet's bytes at their byte
+offset in the batch's ``.gip`` body, so the download is the body as it
+lies in the file and the host splices nothing.  Decode reads the reader's
+dense blob in place, the packets as they lie in the file at their byte
+offsets (K2 takes per-packet byte offsets), so there is no expand gather.
 
 What the JAX MeshCodec does for the TPU's sake and this class does not:
-the entropy and density sorts, hull routing, ``_expand_rows``, lane
-padding to a tile, the compilation cache and the host re-encode fixup (K1
-has no error flag).
+the entropy and density sorts, hull routing, ``_compact_rows`` and the
+host splice of its 96-byte rows, ``_expand_rows``, lane padding to a
+tile, the compilation cache and the host re-encode fixup (K1 has no error
+flag).
 
 ``device=torch.device("cpu")`` runs the same code with the kernels' plain
 versions and no streams; only the tests choose it.
@@ -32,36 +32,10 @@ import contextlib
 import numpy as np
 import torch
 
-from gpuar_tpu_torch import native
 from gpuar_tpu_torch.config import UNCOMPRESSED_PACKET_SIZE
 from gpuar_tpu_torch.ops import _kernels
 from gpuar_tpu_torch.ops import decode as dec_ops
 from gpuar_tpu_torch.ops import encode as enc_ops
-
-COMPACT_ROW_WORDS = 24   # 96-byte rows (divides out_words 2184 at 8192)
-
-
-def compact_rows(packets: torch.Tensor, lengths: torch.Tensor,
-                 row_bytes: int):
-    """Gather each packet's occupied rows into a dense blob.
-
-    packets uint8 [n, stride] (stride a multiple of row_bytes), lengths
-    [n] -> (blob uint8 [n*rows_pp, row_bytes], row offsets int64 [n],
-    total rows int64 0-d), all on packets' device and without a host
-    sync: a cumsum of row counts and a row-index gather
-    (``mesh._compact_rows``).  Rows past the total are filler.
-    """
-    n, stride = packets.shape
-    rows_pp = stride // row_bytes
-    cap = n * rows_pp
-    rcnt = (lengths.to(torch.int64) + row_bytes - 1) // row_bytes
-    ends = torch.cumsum(rcnt, 0)
-    roff = ends - rcnt
-    r = torch.arange(cap, dtype=torch.int64, device=packets.device)
-    p = torch.searchsorted(ends, r, right=True).clamp_(max=n - 1)
-    src = (p * rows_pp + (r - roff[p])).clamp_(0, cap - 1)
-    blob = packets.reshape(cap, row_bytes).index_select(0, src)
-    return blob, roff, ends[-1]
 
 
 class _Slot:
@@ -97,9 +71,6 @@ class DeviceCodec:
         self.debug = debug
         _, self.out_words = enc_ops.out_geometry(packet_size)
         self.stride = self.out_words * 4
-        self.row_words = next(r for r in (COMPACT_ROW_WORDS, 16, 8)
-                              if self.out_words % r == 0)
-        self.row_bytes = self.row_words * 4
         self._cuda = self.device.type == "cuda"
         self._stream = torch.cuda.Stream(self.device) if self._cuda else None
         self._fetch_stream = torch.cuda.Stream(self.device) if self._cuda \
@@ -171,10 +142,11 @@ class DeviceCodec:
     # --- encode ------------------------------------------------------------
     def encode_body_async(self, data: np.ndarray | torch.Tensor,
                           sizes: np.ndarray):
-        """Launch K1 on padded raw packets [n, packet_size] and the device
-        compaction; returns a handle for encode_body_wait.  A host tensor
-        ``data`` (pinned for a CUDA device) is uploaded as it is, an array
-        through the slot's pinned buffer."""
+        """Launch K1 on padded raw packets [n, packet_size], then G1, which
+        gathers the batch's body on the device; returns a handle for
+        encode_body_wait.  A host tensor ``data`` (pinned for a CUDA
+        device) is uploaded as it is, an array through the slot's pinned
+        buffer."""
         n = data.shape[0]
         slot = self._slot()
         with self._on_stream():
@@ -182,39 +154,38 @@ class DeviceCodec:
             d_sizes = self._upload(slot, "sizes",
                                    np.asarray(sizes, np.int32))
             packets, lengths = enc_ops.encode_batch(d_data, d_sizes)
-            blob, roff, total = compact_rows(packets, lengths,
-                                             self.row_bytes)
-            meta = torch.cat([lengths.to(torch.int64), roff, total[None]])
+            body, total = enc_ops.gather_body(packets, lengths)
+            meta = torch.cat([lengths.to(torch.int64), total[None]])
             h_meta = self._download(slot, "meta", meta)
-        return slot, self._record(slot), blob, h_meta, n
+        return slot, self._record(slot), body, h_meta, n
 
-    def encode_body_wait(self, handle):
-        """-> (.gip body uint8 [bytes], lengths int32 [n])."""
-        blob, offsets, lengths = self.fetch_blob(handle)
-        return native.splice_at(blob, offsets, lengths), lengths
-
-    def fetch_blob(self, handle, into: torch.Tensor | None = None):
-        """Wait for an encode_body_async batch and download the used part
-        of its compacted blob -> (blob uint8 [bytes], packet byte offsets
-        int64 [n] in it, lengths int32 [n]).  ``into``: a flat uint8 host
-        tensor to download into (default the slot's pinned buffer)."""
-        slot, event, blob, h_meta, n = handle
+    def encode_body_wait(self, handle, into: torch.Tensor | None = None):
+        """Wait for an encode_body_async batch and download exactly its
+        body's bytes -> (.gip body uint8 [bytes], lengths int32 [n]).
+        ``into``: a flat uint8 host tensor to download into (MeshCodec's
+        batch buffer); by default the body is a view of the slot's pinned
+        buffer, valid until the slot's next batch is fetched, two submits
+        later."""
+        slot, event, body, h_meta, n = handle
         self._wait(event)
         meta = h_meta.numpy()
         lengths = meta[:n].astype(np.int32)
-        offsets = meta[n:2 * n] * self.row_bytes
-        nbytes = int(meta[2 * n]) * self.row_bytes
-        # The blob download goes on its own stream: the batch stream may
-        # already hold the next batch's kernel, which this copy need not
+        nbytes = int(meta[n])
+        # The body's download goes on its own stream: the batch stream may
+        # already hold the next batch's kernels, which this copy need not
         # wait for (the event above covered this batch's work).
         with (torch.cuda.stream(self._fetch_stream) if self._cuda
               else contextlib.nullcontext()):
-            h_blob = self._download(
-                slot, "blob", blob.view(-1)[:nbytes],
+            h_body = self._download(
+                slot, "blob", body[:nbytes],
                 into=None if into is None else into[:nbytes])
         if self._cuda:
             self._fetch_stream.synchronize()
-        return h_blob.numpy(), offsets, lengths
+        return h_body.numpy(), lengths
+
+    def encode_body(self, data: np.ndarray, sizes: np.ndarray):
+        """encode_body_wait(encode_body_async(data, sizes))."""
+        return self.encode_body_wait(self.encode_body_async(data, sizes))
 
     def encode(self, data: np.ndarray, sizes: np.ndarray):
         """Stride path: padded raw packets [n, packet_size] uint8 ->

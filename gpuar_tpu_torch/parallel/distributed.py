@@ -362,7 +362,7 @@ class DistributedCompressor:
         start, stop = host_ranges(info.uncompressed_file_size, world)[rank]
         local = CompressionInfo(uncompressed_file_size=stop - start)
 
-        # Encode this rank's range, the writer spooling the spliced body
+        # Encode this rank's range, the writer spooling the body
         # to a temp file so memory stays bounded by one super-batch.
         batch = self.backend.super_batch_packets * UNCOMPRESSED_PACKET_SIZE
         with open(src, "rb") as fin, \

@@ -13,10 +13,11 @@ results in packet order.
   reads the batch into the batch slot's ``[n, packet_size]`` host buffer
   (``encode_buffer``, pinned for a CUDA device), so each shard uploads
   its rows of it with no host copy; an array from elsewhere is copied
-  into that buffer first.  Every shard's compacted blob is downloaded
-  into its byte range of one pinned batch buffer, and one
-  ``native.splice_at`` in place over that buffer gives the batch's
-  ``.gip`` body.
+  into that buffer first.  Each shard's G1 gathers the shard's ``.gip``
+  body on its device, and each body is downloaded into one pinned batch
+  buffer right after the one before it: the shards are contiguous packet
+  ranges, so the buffer's head is then the batch's body, with nothing
+  concatenated or spliced on the host.
 - Decode: shard k of the reader-built blob is its bytes ``off[a_k] ..
   off[b_k]`` (the last shard's to the blob's end), its offsets rebased
   to zero.  The file pipeline has the reader read the dense blob into the
@@ -31,7 +32,7 @@ results in packet order.
   every shard's batch that last read the slot has finished, so the drive
   loops, which hold one batch in flight while they read the next, never
   overwrite bytes a copy to the card has yet to read.  A slot's output
-  (the decoded batch, the spliced body) stays valid until two submits
+  (the decoded batch, the body) stays valid until two submits
   later; the drive loops' writer thread has written it before then
   (``pipeline._Lane``).
 - The JAX class's synchronous stride API (``encode``, ``encode_async`` /
@@ -51,7 +52,6 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from gpuar_tpu_torch import native
 from gpuar_tpu_torch.config import UNCOMPRESSED_PACKET_SIZE
 from gpuar_tpu_torch.ops import encode as enc_ops
 from gpuar_tpu_torch.ops.decode import check_debug_flags
@@ -144,10 +144,10 @@ class MeshCodec:
             .reshape(n, self.packet_size)
 
     def encode_body_async(self, data: np.ndarray, sizes: np.ndarray):
-        """Launch every shard's K1 and compaction; returns one handle.
-        Every shard uploads its rows of the slot's data buffer: a batch
-        read into ``encode_buffer`` is already there, any other array is
-        copied in first."""
+        """Launch every shard's K1 and G1; returns one handle.  Every
+        shard uploads its rows of the slot's data buffer: a batch read
+        into ``encode_buffer`` is already there, any other array is copied
+        in first."""
         n = data.shape[0]
         i = self._next
         slot = self._slot()
@@ -159,23 +159,19 @@ class MeshCodec:
 
     def encode_body_wait(self, handle):
         """-> (.gip body uint8 [bytes], lengths int32 [n]) in packet
-        order.  The body is spliced in place in the slot's blob buffer: it
-        stays valid until the wait of the slot's next batch, two submits
-        later (the drive loops' writer thread has written it before that
-        batch's submit)."""
+        order.  Each shard's body is downloaded at the end of the one
+        before it in the slot's blob buffer, whose head is then the
+        batch's body: it stays valid until the wait of the slot's next
+        batch, two submits later (the drive loops' writer thread has
+        written it before that batch's submit)."""
         slot, n, parts = handle
         buf = slot.buf("blob", n * self.stride)
-        pos, offsets, lengths = 0, [np.zeros(0, np.int64)], \
-            [np.zeros(0, np.int32)]
+        pos, lengths = 0, [np.zeros(0, np.int32)]
         for codec, h in parts:
-            blob, offs, lens = codec.fetch_blob(h, into=buf[pos:])
-            offsets.append(offs + pos)
+            body, lens = codec.encode_body_wait(h, into=buf[pos:])
             lengths.append(lens)
-            pos += blob.size
-        lengths = np.concatenate(lengths)
-        body = buf[:pos].numpy()
-        return (native.splice_at(body, np.concatenate(offsets), lengths,
-                                 out=body), lengths)
+            pos += body.size
+        return buf[:pos].numpy(), np.concatenate(lengths)
 
     def encode_body(self, data: np.ndarray, sizes: np.ndarray):
         """encode_body_wait(encode_body_async(data, sizes))."""

@@ -4,7 +4,8 @@ The counterpart of ``gpuar_tpu/parallel/runner.py::TPUCompressor``: it
 plugs a MeshCodec over the local GPUs (every one by default, or the one
 ``device_index`` pins) into the drive loops of ``pipeline.Compressor``
 (read a super-batch into the mesh's pinned upload buffer, submit it,
-fetch the previous one, splice in order into the ``.gip`` container).
+fetch the previous one's body, gathered on the cards, and write it in
+order into the ``.gip`` container).
 Each device's CUDA streams and per-batch events let batch N+1 run on the
 cards while the host writes batch N.  In a ``--multihost`` run each process's
 GPUCompressor codes that process's range on its own local GPUs

@@ -430,11 +430,10 @@ class _Lane:
 def _splice(packets: np.ndarray, lengths: np.ndarray) -> np.ndarray:
     """Concatenate variable-length packets from a fixed-stride batch.
 
-    A 1-D array is a pre-spliced body (the device-compaction path of
-    parallel/codec.DeviceCodec) and passes straight through.  Returns a
-    uint8 array: file.write takes it via the buffer protocol, so the
-    compacted path ships a super-batch body with ZERO host copies where
-    it used to pay two (.tobytes() here and in native.splice_at)."""
+    A 1-D array is the body itself (the GPU path: G1 gathers it on the
+    device, parallel/codec.DeviceCodec) and passes straight through.
+    Returns a uint8 array: file.write takes it via the buffer protocol,
+    so the GPU path ships a super-batch body with no host copy."""
     if packets.ndim == 1:
         return np.ascontiguousarray(packets)
     if packets.shape[0] == 0:

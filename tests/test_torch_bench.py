@@ -928,9 +928,9 @@ def test_stage_run_on_the_cpu(tmp_path, one_torch_thread):
     """One stage-timed compress and decompress of 1 MiB on a CPU device
     (64-byte packets: four batches of 4096 each way): the reader's read
     and walk, the writer's write and the loop's opens and closes are
-    timed, the loop's stages sum to no more than the wall, no device
-    stage is recorded, every hook is undone, and the round trip is
-    exact."""
+    timed, compress's loop splices nothing (``compress_splice_s`` reads
+    0), the loop's stages sum to no more than the wall, no device stage
+    is recorded, every hook is undone, and the round trip is exact."""
     from gpuar_tpu_torch import pipeline
     from gpuar_tpu_torch.parallel.codec import DeviceCodec
 
@@ -938,7 +938,7 @@ def test_stage_run_on_the_cpu(tmp_path, one_torch_thread):
     src, gip, back = tmp_path / "in.bin", tmp_path / "c.gip", \
         tmp_path / "back.bin"
     src.write_bytes(data)
-    before = (DeviceCodec.fetch_blob, DeviceCodec._download,
+    before = (DeviceCodec.encode_body_wait, DeviceCodec._download,
               pipeline._Lane.wait, GPUCompressor.encode_submit,
               port_native.walk_packets, pipeline._PacketReader._carry_in)
     runs = {}
@@ -968,9 +968,11 @@ def test_stage_run_on_the_cpu(tmp_path, one_torch_thread):
     assert f"carry {dec['threads']['reader']['carry'][0]:.6f} s x5 " \
         f"{dec['bytes']['carry']} B" in stages.line(
             dec, stages.STAGES["decompress"])
-    assert runs["compress"]["threads"]["main"]["splice"][1] == 4
+    # G1 gathers the body on the device: the loop splices nothing, and
+    # compress_splice_s reads 0 (a stage a run lacks, stage_readings).
+    assert "splice" not in runs["compress"]["threads"]["main"]
     assert back.read_bytes() == data
-    assert before == (DeviceCodec.fetch_blob, DeviceCodec._download,
+    assert before == (DeviceCodec.encode_body_wait, DeviceCodec._download,
                       pipeline._Lane.wait, GPUCompressor.encode_submit,
                       port_native.walk_packets,
                       pipeline._PacketReader._carry_in)
@@ -1126,7 +1128,13 @@ def test_gpu_bench_cell_on_the_card(tmp_path):
     assert s["kernel_batch_packets"] * torch.cuda.device_count() == \
         s["loop_batch_packets"]
     for key in bench.STAGE_METRICS:
-        assert r[key] > 0, key
+        # G1 gathers the body on the card: the loop splices nothing.
+        if key == "compress_splice_s":
+            assert r[key] == 0, key
+        else:
+            assert r[key] > 0, key
+    assert r["breakdown"]["compress"]["trace_kernels"]["gather"][
+        "launches"] == r["super_batches"]
     for verb in bench.VERBS:
         b = r["breakdown"][verb]
         assert set(b) == {"device_ops", "trace_kernels", "idle_gaps",

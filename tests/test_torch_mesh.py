@@ -53,7 +53,9 @@ def batch():
 @pytest.fixture(scope="module")
 def reference(batch):
     """(body, lengths, stride packets) of one DeviceCodec, and the JAX
-    MeshCodec's body and lengths on the 8-device virtual mesh."""
+    MeshCodec's body and lengths on the 8-device virtual mesh: its stride
+    packets spliced, which its ``encode_body`` (the row compaction and
+    the host splice) must equal."""
     from gpuar_tpu.parallel.mesh import MeshCodec as JaxMeshCodec, make_mesh
 
     data, sizes = batch
@@ -64,6 +66,9 @@ def reference(batch):
                              interpret=True)
     jpk, jlen = jax_codec.encode(data, sizes)
     jbody = b"".join(jpk[i, : jlen[i]].tobytes() for i in range(N))
+    jbody2, jlen2 = jax_codec.encode_body(data, sizes)
+    assert jbody2.tobytes() == jbody
+    np.testing.assert_array_equal(jlen2, jlen)
     return body.tobytes(), lengths, packets, jbody, jlen
 
 
@@ -88,6 +93,32 @@ def test_encode_matches_one_codec_and_jax(k, batch, reference):
     assert got.tobytes() == body
     np.testing.assert_array_equal(got_len, jlen)
     assert got.tobytes() == jbody
+
+
+@pytest.mark.parametrize("k", [0, 1, 2, 3])
+def test_encode_body_gathered_on_the_device_equals_jax(k, batch, reference):
+    """encode_body of one DeviceCodec (k = 0) and of a MeshCodec of k CPU
+    shards: G1's body (its plain version here) equals the JAX MeshCodec's
+    encode_body at 0 bytes, and the two batches in flight of the
+    MeshCodec's two slots each keep theirs."""
+    data, sizes = batch
+    _, _, _, jbody, jlen = reference
+    codec = DeviceCodec(CPU, packet_size=P) if k == 0 \
+        else MeshCodec([CPU] * k, packet_size=P)
+    got, got_len = codec.encode_body(data, sizes)
+    assert got.tobytes() == jbody
+    np.testing.assert_array_equal(got_len, jlen)
+    if k:
+        flipped = data[::-1].copy(), sizes[::-1].copy()
+        h1 = codec.encode_body_async(data, sizes)
+        h2 = codec.encode_body_async(*flipped)
+        got1, len1 = codec.encode_body_wait(h1)
+        got2, len2 = codec.encode_body_wait(h2)
+        ends = np.cumsum(jlen)
+        assert got1.tobytes() == jbody
+        np.testing.assert_array_equal(len2, jlen[::-1])
+        assert got2.tobytes() == b"".join(jbody[e - n: e] for e, n in
+                                          zip(ends[::-1], jlen[::-1]))
 
 
 @pytest.mark.parametrize("form", ["dense", "rows"])
@@ -347,7 +378,8 @@ def test_gpu_two_shards_on_one_card_equal_one_codec():
     np.testing.assert_array_equal(out, data)
     for codec in mesh.codecs:
         counts = codec.launches()
-        assert counts["encode"] == 1 and counts["decode_debug"] == 1, counts
+        assert counts["encode"] == 1 and counts["gather"] == 1 \
+            and counts["decode_debug"] == 1, counts
 
 
 @pytest.mark.gpu

@@ -413,9 +413,10 @@ def test_dense_decompress_of_jax_archives(tmp_path, one_torch_thread, case,
 
 
 def test_compacted_body_path_matches_stride_path(rng):
-    """DeviceCodec's compacted encode (device row gather + splice_at) gives
-    exactly the stride path's spliced bytes, and the stride decode and the
-    reader's dense blob decode both round-trip them."""
+    """DeviceCodec's body encode (K1, then G1's gather of the body on the
+    device, nothing spliced on the host) gives exactly the stride path's
+    spliced bytes, and the stride decode and the reader's dense blob
+    decode both round-trip them."""
     from gpuar_tpu_torch.parallel.codec import DeviceCodec
     from gpuar_tpu_torch.pipeline import _PacketReader
 
@@ -527,8 +528,8 @@ def test_default_geometry_feed_matches_host(tmp_path, monkeypatch, resume):
 @pytest.mark.parametrize("k", [1, 2, 3])
 def test_fetched_body_survives_next_submit(k):
     """In the drive loop's order (submit N + 1, fetch N, submit N + 2,
-    write N), batch N's body, spliced in place in its slot's buffer and
-    not in a fresh array, is still intact after batch N + 2 was read into
+    write N), batch N's body, downloaded as it lies in the file into its
+    slot's buffer and not into a fresh array, is still intact after batch N + 2 was read into
     and submitted from the same slot's data buffer."""
     from gpuar_tpu_torch.parallel.mesh import MeshCodec
 
