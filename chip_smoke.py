@@ -31,7 +31,10 @@ exit, no result line):
      occupancy; on the H100 4224 packets, five super-batches, the last
      ragged), byte-identical to HostCompressor's archive, md5 round trip,
      the host archive decoded on the GPU and by the debug decoder; the
-     kernels' launch counts over that run;
+     kernels' launch counts over that run; then one stage-timed warm run
+     of each verb, whose lead-in (the call's start to the first device
+     stage) and tail (the last fetch's start to the end of the last
+     write) print on the line of the main path's batches;
   5. the kernels at the main path's shapes: each kernel timed (CUDA
      events) on each of the file's super-batches as phase 4 cut them, K2
      and K3 on the batch's dense blob, which ``read_batch_dense`` reads
@@ -139,9 +142,20 @@ runs only phases 0 and 1 and the launch-size sweep (``launch_sweep``):
 a card's batch of 1/16, 1/8, 1/4, 1/2, 1 and 2 waves of the codec
 kernels' launch and the JAX package's 8192 packets, each through
 GPUCompressor's compress and decompress on the benchmark cells' three
-corpora in interleaved rounds, the median and quartiles of each, and the
-size the rule of ``choose_waves`` picks (``runner.BATCH_WAVES`` holds the
-H100's); no kernels line.
+corpora in interleaved rounds (5, 5 and 3), each run writing new files,
+the median and quartiles of each, a table of the medians, and the size
+the rule of ``choose_waves`` picks (``runner.BATCH_WAVES`` holds the
+H100's); no kernels line.  About four minutes on the H100.
+
+    python3 chip_smoke.py --edges
+
+runs only phases 0 and 1 and, on the three cells' corpora at full size,
+rounds (7, 7 and 5) of GPUCompressor()'s compress and decompress, each
+timed by the wall and then stage-timed: each verb's GB/s, lead-in and
+tail, each round's and their median; no kernels line.  It runs on any
+tree of the port since its stage clock: copied into an earlier tree's
+root and run from there, it measures that tree (parent against change
+in one call).
 
 The second-to-last line is a JSON object of the kernels: for K1-K3 and
 G1 ms, plain_ms and bound_ms are batch 0's (K2's and K3's on its dense
@@ -167,6 +181,7 @@ import argparse
 import contextlib
 import hashlib
 import io
+import itertools
 import json
 import os
 import re
@@ -735,7 +750,52 @@ def phase4(card, src):
               f"{size / t_comp / 1e9:.6f} GB/s, decompress {t_dec:.6f} s = "
               f"{size / t_dec / 1e9:.6f} GB/s ({size} B file, wall "
               f"time{split})", flush=True)
+    total, n = -(-size // P), gpu.super_batch_packets
+    print(f"[{card}] main path batches: {-(-total // n)} of {n} packets, "
+          f"the last {total - (-(-total // n) - 1) * n}, both verbs; "
+          f"{edge_line(gpu, src, want)}", flush=True)
     return gpu, launches
+
+
+def edge_line(gpu, src: Path, want: str) -> str:
+    """One stage-timed warm run of each verb of ``gpu`` on src (its round
+    trip held to the md5 ``want``) -> their lead-in and tail, as text."""
+    edges = {verb: edge_run(gpu, verb, a, WORK / f"edge.{verb}")
+             for verb, a in (("compress", src),
+                             ("decompress", WORK / "edge.compress"))}
+    if md5(WORK / "edge.decompress") != want:
+        raise AssertionError("the stage-timed run does not round-trip")
+    for verb in edges:
+        (WORK / f"edge.{verb}").unlink()
+    return ", ".join(f"{verb} lead-in {e['lead_in_s'] * 1e3:.4f} ms, tail "
+                     f"{e['tail_s'] * 1e3:.4f} ms"
+                     for verb, e in edges.items()) \
+        + " (a stage-timed warm run of each)"
+
+
+def edge_run(gpu, verb: str, src: Path, dst: Path) -> dict:
+    """One stage-timed ``gpu.compress`` or ``.decompress`` (the stage
+    clock of ``gpuar_tpu_torch/bench/stages.py``) -> "wall_s", "lead_in_s"
+    (the call's start to its first device stage: the first batch's read,
+    which nothing overlaps) and "tail_s" (the start of the loop's last
+    fetch to the end of the writer's last write: the last batch's fetch
+    and write, which nothing overlaps)."""
+    from gpuar_tpu_torch.bench import stages
+
+    clock = stages.StageClock()
+    devices = sorted({c.device.index for c in gpu.codec.codecs
+                      if c.device.type == "cuda"})
+    with clock.hooked(verb, type(gpu)):
+        clock.start(devices)
+        getattr(gpu, verb)(src, dst)
+        clock.stop()
+    run = clock.summary()
+    fetch = max(a for thread, st, a, _ in clock.spans
+                if thread == "MainThread" and st == "fetch")
+    write = max(b for thread, st, _, b in clock.spans
+                if thread == "gpuar-writer" and st == "write")
+    return {"wall_s": run["wall_s"], "lead_in_s": run["lead_in_s"],
+            "tail_s": write - fetch}
 
 
 def phase6(card, src, errs):
@@ -1096,16 +1156,18 @@ def launch_sweep(card) -> dict:
     """``--sweep``: the end-to-end rate of each of ``card_sizes`` on the
     three cells' corpora (SWEEP_SHAPES), a file on local disk through
     ``GPUCompressor(super_batch_packets=n)``'s ``compress`` then
-    ``decompress``, each timed by the wall around the call.  A shape's
-    sizes each get one untimed run, then rounds in which every size runs
+    ``decompress``, each timed by the wall around the call; each run
+    writes new files, unlinked after its checks.  A shape's sizes each
+    get one untimed run, then rounds in which every size runs
     once, the order rotated by one size a round.  Every archive must
     equal the 8192 one (sha256) and every round trip the corpus (md5).
     One line a shape, size and verb: the median and quartiles of the
     rate, the medians of ``CompressionInfo``'s process and io seconds,
     and the median device time of a batch (CUDA events on the codec's
     stream around each batch's submit: upload, kernel, compaction or
-    download).  Then the choice (``choose_waves``) and one JSON line of
-    the medians and the choice."""
+    download).  Then the table of medians, the choice
+    (``choose_waves``) and one JSON line of the medians and the
+    choice."""
     from gpuar_tpu_torch.bench import stages
     from gpuar_tpu_torch.bench.__main__ import (
         CELLS, DISK_FILES, corpus, disk_room, quartiles)
@@ -1127,13 +1189,17 @@ def launch_sweep(card) -> dict:
         t0 = time.perf_counter()
         size = CELLS[cell]
         disk_room(WORK, DISK_FILES * size)
-        src, gip, back = (WORK / f"launch.{x}" for x in ("bin", "gip",
-                                                          "back"))
+        src = WORK / "launch.bin"
         src.write_bytes(corpus(cell, size))
         want, archive = md5(src), {}
         runs = {(v, n): [] for v in VERBS for n in sizes}
+        count = itertools.count()
 
         def run(n, timed):
+            # New files each run, unlinked after its checks: no run pays
+            # the truncation of an earlier run's outputs.
+            k = next(count)
+            gip, back = WORK / f"launch_{k}.gip", WORK / f"launch_{k}.back"
             for verb, call in (
                     ("compress", lambda: gpus[n].compress(src, gip)),
                     ("decompress", lambda: gpus[n].decompress(gip, back))):
@@ -1156,6 +1222,8 @@ def launch_sweep(card) -> dict:
             if md5(back) != want:
                 raise AssertionError(f"{cell}: the round trip at {n} "
                                      f"packets differs (md5)")
+            gip.unlink()
+            back.unlink()
 
         order = [JAX_BATCH, *(n for n in sizes if n != JAX_BATCH)]
         for n in order:
@@ -1179,14 +1247,27 @@ def launch_sweep(card) -> dict:
                       f"batch (CUDA events)", flush=True)
         say(f"sweep {cell}", f"{len(sizes)} sizes, {rounds} rounds: every "
             f"archive == the {JAX_BATCH} one, md5 round trips", t0)
-        for f in (src, gip, back):
-            f.unlink()
+        src.unlink()
+    keys = [(c, v) for c, _ in SWEEP_SHAPES for v in VERBS]
+    print(f"[{card}] sweep table, median GB/s (" + ", ".join(
+        f"{c} {v[0]}" for c, v in keys) + f"; geometric mean over "
+        f"{JAX_BATCH}):", flush=True)
+    for n in sizes:
+        row = [medians[c, v, n] for c, v in keys]
+        ratio = geomean([r / medians[c, v, JAX_BATCH]
+                         for r, (c, v) in zip(row, keys)])
+        print(f"[{card}]   {n:>6} packets: " + " ".join(
+            f"{r:.6f}" for r in row) + f"  x{ratio:.4f}", flush=True)
     choice = choose_waves(medians, sizes, geometry)
     print(f"[{card}] launch choice: {json.dumps(choice)}", flush=True)
     print(json.dumps({"sweep": {f"{c} {v} {n}": m for (c, v, n), m in
                                 medians.items()}, "choice": choice}),
           flush=True)
     return choice
+
+
+def geomean(x) -> float:
+    return float(np.exp(np.mean(np.log(x))))
 
 
 def choose_waves(medians: dict, sizes: dict, geometry) -> dict:
@@ -1208,7 +1289,7 @@ def choose_waves(medians: dict, sizes: dict, geometry) -> dict:
             continue
         ratios = [medians[c, v, n] / medians[c, v, JAX_BATCH]
                   for c, v in keys]
-        scores[n] = float(np.exp(np.mean(np.log(ratios))))
+        scores[n] = geomean(ratios)
         if all(r >= 1 - bounds[c][f"{v}_gbps"]["bound"]
                for r, (c, v) in zip(ratios, keys)):
             eligible.append(n)
@@ -1220,6 +1301,77 @@ def choose_waves(medians: dict, sizes: dict, geometry) -> dict:
         n = batch_packets(geometry, waves)
     return {"packets": n, "waves": waves, "f": waves * blocks,
             "geomean_vs_8192": scores, "eligible": eligible}
+
+
+# The shapes of ``--edges``: each cell's corpus at full size, and its
+# rounds (each a plain and a stage-timed run of both verbs).
+EDGE_SHAPES = (("random_64m", 7), ("enwik8_proxy_100m", 7), ("random_1g", 5))
+
+
+def edges(card) -> dict:
+    """``--edges``: the file's edges, on the three cells' corpora at full
+    size (EDGE_SHAPES) through GPUCompressor().  Each round runs
+    ``compress`` then ``decompress`` once timed by the wall around the
+    call, then once stage-timed (``edge_run``: the lead-in and the tail);
+    every run writes new files, the last round's unlinked between rounds,
+    and every archive and round trip is checked (sha256 against the
+    first, md5).  One line a cell and verb with each round's GB/s,
+    lead-in and tail (ms) and their medians, then one JSON line of them
+    all.  It uses only what the port's tree has had since its stage clock
+    (``bench/stages.py``), so this script can run it on an earlier tree:
+    copied into that tree's root, from there."""
+    from gpuar_tpu_torch.bench.__main__ import (
+        CELLS, DISK_FILES, corpus, disk_room)
+    from gpuar_tpu_torch.parallel.runner import GPUCompressor
+
+    gpu = GPUCompressor()
+    out = {}
+    for cell, rounds in EDGE_SHAPES:
+        t0 = time.perf_counter()
+        size = CELLS[cell]
+        disk_room(WORK, DISK_FILES * size)
+        src = WORK / "edges.bin"
+        src.write_bytes(corpus(cell, size))
+        want, archive = md5(src), None
+        got = {v: {"gbps": [], "lead_in_ms": [], "tail_ms": []}
+               for v in VERBS}
+        for r in range(-1, rounds):   # round -1: warm-up, not kept
+            files = [WORK / f"edges_{k}.{x}" for k in range(2)
+                     for x in ("gip", "back")]
+            for k, (gip, back) in enumerate((files[:2], files[2:])):
+                for verb, a, b in (("compress", src, gip),
+                                   ("decompress", gip, back)):
+                    if k == 0:
+                        t = time.perf_counter()
+                        getattr(gpu, verb)(a, b)
+                        sec = time.perf_counter() - t
+                        if r >= 0:
+                            got[verb]["gbps"].append(size / sec / 1e9)
+                    else:
+                        e = edge_run(gpu, verb, a, b)
+                        if r >= 0:
+                            got[verb]["lead_in_ms"].append(
+                                e["lead_in_s"] * 1e3)
+                            got[verb]["tail_ms"].append(e["tail_s"] * 1e3)
+                digest = sha256(gip)
+                archive = archive or digest
+                if digest != archive or md5(back) != want:
+                    raise AssertionError(f"{cell}: round {r} differs")
+            # Unlinked outside the timed calls: every run writes new
+            # files, none pays the truncation of an old one.
+            for f in files:
+                f.unlink()
+        src.unlink()
+        for verb, row in got.items():
+            print(f"[{card}] edges {cell} {verb}, {rounds} rounds: "
+                  + "; ".join(f"{k} median {float(np.median(v)):.6f} ["
+                              + ", ".join(f"{x:.6f}" for x in v) + "]"
+                              for k, v in row.items()), flush=True)
+        out[cell] = got
+        say(f"edges {cell}", f"{rounds} rounds, archives equal, md5 round "
+            f"trips", t0)
+    print(json.dumps({"edges": out}), flush=True)
+    return out
 
 
 def main_path_batch(raw: np.ndarray, b: int, n: int):
@@ -2010,6 +2162,10 @@ def main() -> int:
     parser.add_argument("--sweep", action="store_true",
                         help="run only phases 0 and 1 and the launch-size "
                              "sweep over the benchmark cells' corpora")
+    parser.add_argument("--edges", action="store_true",
+                        help="run only phases 0 and 1 and the lead-in, "
+                             "tail and GB/s of GPUCompressor() on the "
+                             "benchmark cells' corpora")
     opts = parser.parse_args()
     t_all = time.perf_counter()
     CARD = phase0()
@@ -2021,12 +2177,13 @@ def main() -> int:
     if WORK.exists():
         shutil.rmtree(WORK)
     WORK.mkdir()
-    if opts.sweep:
+    if opts.sweep or opts.edges:
         try:
-            launch_sweep(CARD)
+            (launch_sweep if opts.sweep else edges)(CARD)
         finally:
             shutil.rmtree(WORK, ignore_errors=True)
-        say("done", "phases 0 and 1 and the launch sweep passed", t_all)
+        say("done", "phases 0 and 1 and the "
+            + ("launch sweep" if opts.sweep else "edges") + " passed", t_all)
         print(json.dumps({"ok": True, "device": device_line()}), flush=True)
         return 0
     try:

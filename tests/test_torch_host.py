@@ -466,6 +466,45 @@ def test_dense_reader_reused_destination(max_packets, buffers, jax_golden):
                                   np.uint8))
 
 
+@pytest.mark.parametrize("block", [200, 1000, 8 << 20])
+def test_dense_reader_carry_across_changing_batches(tmp_path, block,
+                                                    jax_golden):
+    """read_batch_dense with a batch that grows and shrinks between calls,
+    into two buffers in turn, at blocks that end inside 64-byte packets:
+    every packet comes back once, in order, with its sizes, and the carry
+    moves between batches of any size."""
+    p = 64
+    data = np.random.default_rng(0xCA).integers(0, 256, 61 * p + 17,
+                                                np.uint8)
+    data[10 * p: 30 * p] = 3
+    body = jax_golden.encode_stream(data.tobytes(), packet_size=p)
+    path = tmp_path / "body.bin"
+    path.write_bytes(body)
+    sizes = [1, 2, 5, 9, 9, 4, 2, 1]
+    largest = max(sizes)
+    got, raw, lens = [], [], []
+    with open(path, "rb") as f:
+        reader = port_pipeline._PacketReader(f, block_size=block, max_raw=p)
+        outs = [np.empty(reader.dense_capacity(largest), np.uint8)
+                for _ in range(2)]
+        while (batch := reader.read_batch_dense(
+                sizes[len(lens)] if len(lens) < len(sizes) else largest,
+                outs[len(lens) % 2])) is not None:
+            blob, offs, comp_len, rs = batch
+            got += [blob[o: o + n].tobytes() for o, n in zip(offs, comp_len)]
+            raw += rs.tolist()
+            lens.append(len(rs))
+    packets, at = [], 0
+    while at < len(body):
+        total, _ = port_container.packet_sizes(
+            np.frombuffer(body[at: at + 4], np.uint8))
+        packets.append(body[at: at + total])
+        at += total
+    assert got == packets and len(packets) == 62
+    assert sum(raw) == data.size and reader.carried > 0
+    assert lens == sizes + [9, 9, 9, 2]
+
+
 def test_dense_reader_without_the_carry_fails(monkeypatch, jax_golden):
     """A mutant that drops the carry instead of moving it fails the dense
     reader's check (the next batch starts mid-packet)."""

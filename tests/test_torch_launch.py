@@ -10,7 +10,8 @@ the sleep control and an explicit size keep theirs.  At rule-sized
 batches on CPU shards (64-byte packets) the archive equals the JAX
 package's host codec's for files of 1, 2 and 3 batches, and two gloo
 ranks with other fake SM counts adopt rank 0's size and write a world of
-one's archive.  The GPU-marked test reads the card's own geometry.
+one's archive.  The GPU-marked tests read the card's own geometry and
+write the host archive of a 160 MiB file at its batch.
 """
 
 import json
@@ -219,3 +220,37 @@ def test_gpu_default_batch_from_the_card():
     assert gpu.batch_from_card
     assert gpu.super_batch_packets == torch.cuda.device_count() \
         * runner.batch_packets((sms, blocks, threads))
+
+
+@pytest.mark.gpu
+def test_gpu_default_writes_the_host_archive(tmp_path):
+    """GPUCompressor() on the card over 160 MiB + 4321 B of random bytes,
+    text and zeros (five of its batches on the H100, the last ragged):
+    the archive equals HostCompressor's and decompress returns the
+    file's md5."""
+    import hashlib
+
+    from gpuar_tpu_torch.bench import corpora
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(0x5C11)
+    mib = 1 << 20
+    src, gip, host, back = (tmp_path / n for n in (
+        "in.bin", "gpu.gip", "host.gip", "back.bin"))
+    with open(src, "wb") as f:
+        f.write(rng.integers(0, 256, 64 * mib, np.uint8).tobytes())
+        f.write(corpora.generate(48 * mib))
+        f.write(bytes(48 * mib))
+        f.write(rng.integers(0, 256, 4321, np.uint8).tobytes())
+    HostCompressor(threads=0).compress(src, host)
+    gpu = runner.GPUCompressor()
+    assert gpu.batch_from_card
+    gpu.compress(src, gip)
+    gpu.decompress(gip, back)
+    assert gip.read_bytes() == host.read_bytes()
+
+    def md5(path):
+        with open(path, "rb") as f:
+            return hashlib.file_digest(f, "md5").hexdigest()
+    assert md5(back) == md5(src)
